@@ -1,0 +1,176 @@
+"""The weight bridge: JAX package variables -> this port's `state_dict`.
+
+The port's modules carry the reference checkpoint's torch names, the keys
+that `mvsformer_tpu/utils/convert_weights.py` (`convert_full_twin`,
+`convert_twins`) reads. This module is the inverse of that converter: it
+takes the JAX `{"params", "batch_stats"}` trees as nested dicts of numpy
+arrays and lays each tensor out for torch:
+
+- flax conv kernel [k..., I, O] -> torch [O, I, k...] (depthwise: I = 1);
+- flax ConvTranspose kernel [k..., in, out], spatially flipped -> torch
+  [in, out, k...];
+- flax Dense kernel [I, O] -> torch Linear weight [O, I] (qkv keeps its
+  [q; k; v] packing);
+- LayerNorm / BN scale -> weight; BN mean / var -> running_mean /
+  running_var.
+
+Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
+the whole TwinMVSNet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _conv_w(k):
+    k = np.asarray(k)
+    nd = k.ndim - 2
+    return np.transpose(k, (nd + 1, nd) + tuple(range(nd)))
+
+
+def _deconv_w(k):
+    k = np.asarray(k)
+    nd = k.ndim - 2
+    k = k[(slice(None, None, -1),) * nd]
+    return np.moveaxis(k, (nd, nd + 1), (0, 1))
+
+
+def _bn(sd, key, p, s):
+    sd[f"{key}.weight"] = p["scale"]
+    sd[f"{key}.bias"] = p["bias"]
+    sd[f"{key}.running_mean"] = s["mean"]
+    sd[f"{key}.running_var"] = s["var"]
+    sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _conv_block(sd, key, p, s, conv_key="conv", bn_key="bn", deconv=False):
+    """flax <block>/{Conv_0|ConvTranspose_0} + Norm_0/BatchNorm_0 -> torch
+    <key>.<conv_key>.* + <key>.<bn_key>.*"""
+    layer = p["ConvTranspose_0" if deconv else "Conv_0"]
+    sd[f"{key}.{conv_key}.weight"] = (_deconv_w if deconv else _conv_w)(layer["kernel"])
+    if "bias" in layer:
+        sd[f"{key}.{conv_key}.bias"] = layer["bias"]
+    _bn(sd, f"{key}.{bn_key}", p["Norm_0"]["BatchNorm_0"], s["Norm_0"]["BatchNorm_0"])
+
+
+def _plain(sd, key, p, transform=_conv_w):
+    sd[f"{key}.weight"] = transform(p["kernel"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = p["bias"]
+
+
+def _ln(sd, key, p):
+    sd[f"{key}.weight"] = p["scale"]
+    sd[f"{key}.bias"] = p["bias"]
+
+
+ENCODER_BLOCKS = ("conv00", "conv01", "downsample1", "conv10", "conv11",
+                  "downsample2", "conv20", "conv21", "downsample3", "conv30", "conv31")
+
+
+def encoder_state(params, stats, prefix="") -> dict:
+    sd: dict = {}
+    for name in ENCODER_BLOCKS:
+        _conv_block(sd, f"{prefix}{name}", params[name], stats[name])
+    return sd
+
+
+def fpn_decoder_state(params, stats, prefix="") -> dict:
+    sd: dict = {}
+    for k in range(4):
+        _conv_block(sd, f"{prefix}out{k}", params[f"out{k}"], stats[f"out{k}"],
+                    conv_key="0", bn_key="1")
+    for k in (1, 2, 3):
+        _plain(sd, f"{prefix}inner{k}", params[f"inner{k}"])
+    return sd
+
+
+def twin_decoder_state(params, stats, prefix="") -> dict:
+    sd: dict = {}
+    _conv_block(sd, f"{prefix}upsampler0", params["upsampler0"], stats["upsampler0"],
+                conv_key="0", bn_key="1", deconv=True)
+    for k in (1, 2, 3):
+        _plain(sd, f"{prefix}inner{k}", params[f"inner{k}"])
+        _conv_block(sd, f"{prefix}smooth{k}", params[f"smooth{k}"], stats[f"smooth{k}"],
+                    conv_key="0", bn_key="1")
+    return sd
+
+
+def twins_state(params, depths=(2, 2, 10, 4), prefix="") -> dict:
+    """flax ALTGVT params -> torch ALTGVT keys (the inverse of convert_twins)."""
+    sd: dict = {}
+    for i, depth in enumerate(depths):
+        pe = params[f"patch_embed{i}"]
+        _plain(sd, f"{prefix}patch_embeds.{i}.proj", pe["proj"])
+        _ln(sd, f"{prefix}patch_embeds.{i}.norm", pe["norm"])
+        _plain(sd, f"{prefix}pos_block.{i}.proj.0", params[f"pos_block{i}"]["proj"])
+        _ln(sd, f"{prefix}norm_list.{i}", params[f"stage_norm{i}"])
+        for j in range(depth):
+            blk = params[f"block{i}_{j}"]
+            key = f"{prefix}blocks.{i}.{j}"
+            _ln(sd, f"{key}.norm1", blk["norm1"])
+            _ln(sd, f"{key}.norm2", blk["norm2"])
+            _plain(sd, f"{key}.mlp.fc1", blk["mlp"]["fc1"], np.transpose)
+            _plain(sd, f"{key}.mlp.fc2", blk["mlp"]["fc2"], np.transpose)
+            attn = blk["attn"]
+            for name in ("qkv", "q", "kv", "proj"):
+                if name in attn:
+                    _plain(sd, f"{key}.attn.{name}", attn[name], np.transpose)
+            if "sr" in attn:
+                _plain(sd, f"{key}.attn.sr", attn["sr"])
+                _ln(sd, f"{key}.attn.norm", attn["norm"])
+    return sd
+
+
+def cost_reg_state(params, stats, three_d: bool, prefix="") -> dict:
+    """CostRegNet (three_d=False) or CostRegNet3D (three_d=True)."""
+    sd: dict = {}
+    for n in (1, 2, 3, 4, 5, 6):
+        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], stats[f"conv{n}"])
+    for n in (7, 9, 11):
+        keys = dict(conv_key="0", bn_key="1") if three_d else {}
+        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], stats[f"conv{n}"],
+                    deconv=True, **keys)
+    if "inner" in params:
+        _plain(sd, f"{prefix}inner", params["inner"])
+    _plain(sd, f"{prefix}prob", params["prob"])
+    return sd
+
+
+def vis_state(params, stats, prefix="") -> dict:
+    sd: dict = {}
+    for j in (0, 1, 2):
+        _conv_block(sd, f"{prefix}{j}", params[f"conv{j}"], stats[f"conv{j}"])
+    _plain(sd, f"{prefix}3", params["conv3"])
+    return sd
+
+
+def to_torch(sd: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))) for k, v in sd.items()}
+
+
+def convert_flax_twin(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
+                      vit_depths=(2, 2, 10, 4)) -> dict:
+    """JAX TwinMVSNet variables -> the port's TwinMVSNet `state_dict`."""
+    sd: dict = {}
+    sd.update(encoder_state(params["encoder"], batch_stats["encoder"], "encoder."))
+    sd.update(fpn_decoder_state(params["decoder"], batch_stats["decoder"], "decoder."))
+    sd.update(twin_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
+                                 "decoder_vit."))
+    sd.update(twins_state(params["vit"], vit_depths, "vit."))
+    for i, nd in enumerate(ndepths):
+        p, s = params[f"stage{i + 1}"], batch_stats[f"stage{i + 1}"]
+        sd.update(vis_state(p["vis"], s["vis"], f"fusions.{i}.vis."))
+        sd.update(cost_reg_state(p["cost_reg"], s["cost_reg"], nd <= model_th,
+                                 f"fusions.{i}.cost_reg."))
+    return to_torch(sd)
+
+
+def load_flax_twin(model, params, batch_stats) -> None:
+    """Load JAX TwinMVSNet variables into the port's model (strict)."""
+    cfg = model.cfg
+    sd = convert_flax_twin(params, batch_stats, tuple(cfg.ndepths), cfg.model_th,
+                           tuple(len(b) for b in model.vit.blocks))
+    model.load_state_dict(sd, strict=True)
