@@ -11,21 +11,29 @@ Phases (any failure exits non-zero, and no result line is printed):
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
-   seeded torch.Generator. Its forward runs with TF32 off (checked in 4),
-   so the request that is timed is the one phase 7 checks.
+   seeded torch.Generator. The FPN encoder head is K4 and each top-down
+   FPN level K5 (the JAX package's default flags), and each global
+   sub-sampled attention of the backbone is K6. Its forward runs with TF32
+   off (checked in 4), so the request that is timed is the one phase 7
+   checks.
 4. Serve a synthetic DTU-eval request (B=1, 5 views, 1152x1536, 192 depths;
    the cameras of `__graft_entry__._synthetic_batch`) through
-   `make_infer_fn`: one warm-up request, which also records the tensors the
-   forward feeds each kernel, then 3 timed requests with every launch count
-   set to 0 just before and read just after. Each kernel must launch once
-   per stage (4 per request).
+   `make_infer_fn`: one warm-up request, then 3 timed requests, each with
+   every launch count set to 0 just before it and read just after it (and
+   the peak memory counted over the three alone). Per request, K1-K3 must
+   launch once per stage (4), K4 once, K5 once per FPN level (3) and K6
+   once per global sub-sampled attention block of the backbone (9). One
+   more request records the tensors the forward feeds each kernel.
 5. Check the outputs: finite, depth within [depth_min, depth_max] and every
    stage's depth within its hypotheses, confidence in (0, 1].
    A further request is timed layer by layer (CUDA events on forward hooks)
    and one under torch.profiler for the device's idle share.
 6. With TF32 off, hold every kernel against its plain PyTorch version on
-   the card, on the tensors the forward fed it at each of the 4 stages (and
-   K1 once more at V=1, the one-view form), and time both.
+   the card, on the tensors the forward fed it at every call of the
+   recorded request (K1-K3 at each of the 4 stages, and K1 once more at
+   V=1, the one-view form; K4 once; K5 at each FPN level; K6 at each GSA
+   block), and time both; for K6 also time scaled_dot_product_attention on
+   the same inputs as the library yardstick.
 7. Run the __graft_entry__ request (B=1, 3 views, 128x128, 192 depths) on
    the card and, with the same weights, on the CPU (the plain versions),
    TF32 off, and compare depth and confidences.
@@ -64,6 +72,16 @@ K2_ATOL = 1e-5            # weights lie in (0, 1)
 #     relative; the depth is a weighted mean of depths ~500 apart.
 K3_DEPTH_ATOL, K3_DEPTH_RTOL = 1e-3, 1e-5
 K3_CONF_ATOL, K3_CONF_RTOL = 1e-6, 1e-5
+# K4, K5: fp32 convolutions against cuDNN's, which may pick a Winograd or
+#     FFT algorithm with a larger fp32 error than direct sums. K4 sums
+#     147-200 products per output through three layers; K5 64 x 9 + cl,
+#     after an interpolation whose align-corners weights are computed as
+#     PyTorch computes them (a wrong weight shows at 1e-2 of the scale).
+K4_RTOL_OF_SCALE = 1e-4   # per output (conv01, down0), of max(1, its max |value|)
+K5_RTOL_OF_SCALE = 1e-4   # per output (out, intra'), of max(1, its max |value|)
+# K6: fp32 logits and probabilities on both sides; the kernel's online
+#     softmax rescales its sums per 32 keys, the plain version divides once.
+K6_RTOL_OF_SCALE = 1e-5   # of max(1, max |output|): a convex mix of v rows
 # End to end, the forward on the card (kernels, cuDNN, cuBLAS) against the
 # same weights on the CPU (plain versions) at the __graft_entry__ request,
 # TF32 off: the bounds tests/test_torch_model.py holds the port to against
@@ -120,7 +138,7 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def k1_cost(args):
+def k1_cost(args, kwargs):
     ref, src, _, _, dv = args[:5]
     b, v, h, w, c = src.shape
     d, g, hw = dv.shape[1], 8, h * w
@@ -132,7 +150,7 @@ def k1_cost(args):
     return nbytes, flops
 
 
-def k2_cost(args):
+def k2_cost(args, kwargs):
     ent = args[0]
     n, h, w = ent.shape
     nbytes = 4 * (2 * n * h * w + 3689)
@@ -140,10 +158,39 @@ def k2_cost(args):
     return nbytes, flops
 
 
-def k3_cost(args):
+def k3_cost(args, kwargs):
     logits = args[0]
     b, d, h, w = logits.shape
     return 4 * (2 * b * d * h * w + 2 * b * h * w), b * h * w * d * 10
+
+
+def k4_cost(args, kwargs):
+    n, _, h, w = args[0].shape
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    nbytes = 4 * (n * 3 * h * w + n * 8 * h * w + n * 16 * ho * wo + 6040)
+    # multiply-adds of the three convs, then BN (2) and lrelu (1) per output.
+    macs = n * h * w * (7 * 7 * 3 * 8 + 5 * 5 * 8 * 8) + n * ho * wo * 5 * 5 * 8 * 16
+    return nbytes, 2 * macs + 3 * (2 * n * 8 * h * w + n * 16 * ho * wo)
+
+
+def k5_cost(args, kwargs):
+    prev, lat, _, _, k3 = args[:5]
+    n, _, h, w = prev.shape
+    cl, co, hw = lat.shape[1], k3.shape[0], 4 * h * w
+    emit = kwargs.get("emit_intra", False)
+    nbytes = 4 * (prev.numel() + lat.numel() + n * co * hw + (n * 64 * hw if emit else 0)
+                  + 64 * (cl + 1) + co * (576 + 3))
+    # per pixel: 1x1 and 3x3 multiply-adds, ~10 ops per channel for the
+    # align-corners lerp and the bias, ~8 per output for bias, BN and swish.
+    return nbytes, n * hw * (2 * 64 * (cl + 9 * co) + 64 * 10 + co * 8)
+
+
+def k6_cost(args, kwargs):
+    q, k, _, nh = args
+    b, n, c = q.shape
+    nk = k.shape[1]
+    # the two products, and ~5 ops per logit for the scale and online softmax.
+    return 4 * (2 * b * n * c + 2 * b * nk * c), 4 * b * n * nk * c + 5 * b * nh * n * nk
 
 
 def bound_ms(nbytes, flops):
@@ -239,6 +286,65 @@ def small_request_errors(torch, model, make_infer_fn):
     return errs
 
 
+def rel_compare(rtol_of_scale, names):
+    """Compare outputs one by one: |got - want| <= rtol * max(1, max|want|)."""
+    def compare(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        ok, err, parts = True, 0.0, []
+        for name, g, w in zip(names, got, want):
+            e, allowed = max_err(g, w), rtol_of_scale * max(1.0, float(w.abs().max()))
+            ok, err = ok and e <= allowed, max(err, e)
+            parts.append(f"{name} {e:.3e} (<= {allowed:.3e})")
+        return ok, err, ", ".join(parts), f"{rtol_of_scale:g} of max(1, max |output|)"
+    return compare
+
+
+def compare_k1(got, want):
+    scale = max(1.0, float(want[0].abs().max()))
+    e_corr, e_ent = max_err(got[0], want[0]), max_err(got[1], want[1])
+    return (e_corr <= K1_RTOL_OF_SCALE * scale and e_ent <= K1_ENT_ATOL, max(e_corr, e_ent),
+            f"corr {e_corr:.3e}, entropy {e_ent:.3e}",
+            f"corr <= {K1_RTOL_OF_SCALE:g}*{scale:.3f}, entropy <= {K1_ENT_ATOL:g}")
+
+
+def compare_k2(got, want):
+    err = max_err(got, want)
+    return err <= K2_ATOL, err, f"{err:.3e}", f"{K2_ATOL:g}"
+
+
+def compare_k3(got, want):
+    e_d = float(((got[0] - want[0]).abs() - K3_DEPTH_RTOL * want[0].abs()).max())
+    e_c = float(((got[1] - want[1]).abs() - K3_CONF_RTOL * want[1].abs()).max())
+    err_d, err_c = max_err(got[0], want[0]), max_err(got[1], want[1])
+    return (e_d <= K3_DEPTH_ATOL and e_c <= K3_CONF_ATOL, max(err_d, err_c),
+            f"depth {err_d:.3e}, conf {err_c:.3e}",
+            f"depth {K3_DEPTH_ATOL:g}+{K3_DEPTH_RTOL:g}|d|, conf {K3_CONF_ATOL:g}+{K3_CONF_RTOL:g}|c|")
+
+
+def sdpa(torch, args):
+    """K6's library yardstick: one scaled_dot_product_attention call on the
+    same q, k, v (heads split as views), and the map of its [B, heads, N,
+    hd] output back to K6's [B, N, C]."""
+    import torch.nn.functional as F
+
+    q, k, v, nh = args
+    b, n, c = q.shape
+    qh, kh, vh = (t.reshape(b, t.shape[1], nh, c // nh).transpose(1, 2) for t in (q, k, v))
+    return (lambda: F.scaled_dot_product_attention(qh, kh, vh),
+            lambda out: out.transpose(1, 2).reshape(b, n, c))
+
+
+def call_label(name, i, args):
+    if name == "encoder_head":
+        return "request"
+    if name == "fpn_level":
+        return f"level{i + 1}"
+    if name == "gsa_attention":
+        return f"block{i + 1} N={args[0].shape[1]} C={args[0].shape[2]}"
+    return f"stage{i + 1}"
+
+
 def main() -> int:
     import torch
 
@@ -248,9 +354,10 @@ def main() -> int:
         return 2
     from mvsformer_torch.config import ModelConfig
     from mvsformer_torch.infer import make_infer_fn
-    from mvsformer_torch.models import stagenet
+    from mvsformer_torch.models import fpn, stagenet, twins
     from mvsformer_torch.models.mvsformer import build_model, random_init_
-    from mvsformer_torch.ops import cuda_build, stage_tail, vis_net, warp_corr
+    from mvsformer_torch.ops import (cuda_build, encoder_head, fpn_level, gsa_attention,
+                                     stage_tail, vis_net, warp_corr)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -264,7 +371,7 @@ def main() -> int:
     print(f"kernel build: {build_s:.1f} s ({', '.join(report)})")
     for name, rep in report.items():
         for line in rep["ptxas"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     # 3. The model.
@@ -277,12 +384,82 @@ def main() -> int:
           f"built in {time.perf_counter() - t0:.1f} s")
     imgs, projs, dv = synthetic_request(torch)
     fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+    nstages = len(cfg.ndepths)
 
-    # 4a. Warm-up request, recording each kernel's inputs per stage and the
-    # TF32 flags the forward runs under (it must turn them off: the model is
-    # fp32, and phase 7 checks it at fp32).
-    recorded = {"warp_group_corr": [], "visibility_net": [], "depth_decode": []}
-    originals = (stagenet.warp_group_corr, stagenet.visibility_net, stagenet.depth_decode)
+    # Every kernel of the path: its wrapper and plain version, the module
+    # whose global the model calls it through, and its launches per request.
+    specs = {
+        "warp_group_corr": dict(
+            kernel=warp_corr.warp_group_corr, plain=warp_corr.warp_group_corr_plain,
+            owner=stagenet, per_request=nstages, cost=k1_cost, compare=compare_k1,
+            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325"),
+        "visibility_net": dict(
+            kernel=vis_net.visibility_net, plain=vis_net.visibility_net_plain,
+            owner=stagenet, per_request=nstages, cost=k2_cost, compare=compare_k2,
+            route="cuda", source="mvsformer_torch/csrc/vis_net.cu",
+            replaces="mvsformer_tpu/ops/pallas/vis_net.py:192"),
+        "depth_decode": dict(
+            kernel=stage_tail.depth_decode, plain=stage_tail.depth_decode_plain,
+            owner=stagenet, per_request=nstages, cost=k3_cost, compare=compare_k3,
+            route="triton", source="mvsformer_torch/ops/stage_tail.py",
+            replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57"),
+        "encoder_head": dict(
+            kernel=encoder_head.encoder_head, plain=encoder_head.encoder_head_plain,
+            owner=fpn, per_request=1, cost=k4_cost,
+            compare=rel_compare(K4_RTOL_OF_SCALE, ("conv01", "down0")),
+            route="cuda", source="mvsformer_torch/csrc/encoder_head.cu",
+            replaces="mvsformer_tpu/ops/pallas/encoder_head.py:213"),
+        "fpn_level": dict(
+            kernel=fpn_level.fpn_level, plain=fpn_level.fpn_level_plain,
+            owner=fpn, per_request=3, cost=k5_cost,
+            compare=rel_compare(K5_RTOL_OF_SCALE, ("out", "intra'")),
+            route="cuda", source="mvsformer_torch/csrc/fpn_level.cu",
+            replaces="mvsformer_tpu/ops/pallas/fpn_final.py:212"),
+        "gsa_attention": dict(
+            kernel=gsa_attention.gsa_attention, plain=gsa_attention.gsa_attention_plain,
+            owner=twins, per_request=sum(d // 2 for d in model.vit.depths), cost=k6_cost,
+            compare=rel_compare(K6_RTOL_OF_SCALE, ("out",)), library=sdpa,
+            route="cuda", source="mvsformer_torch/csrc/gsa_attention.cu",
+            replaces="mvsformer_tpu/ops/pallas/gsa_attention.py:68"),
+    }
+
+    # 4a. Warm-up request.
+    t0 = time.perf_counter()
+    fn(imgs, projs, dv)
+    torch.cuda.synchronize()
+    print(f"warm-up request: {time.perf_counter() - t0:.3f} s")
+
+    # 4b. Timed requests. Each drives the main path once: every launch count
+    # is set to 0 just before it and read just after it.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for _ in range(N_REQUESTS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, stage_confs = fn(imgs, projs, dv)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        for name, spec in specs.items():
+            if counts.get(name, 0) != spec["per_request"]:
+                raise RuntimeError(f"{name}: {counts.get(name, 0)} launches in a request, "
+                                   f"want {spec['per_request']}")
+        launches = launches or counts
+    print(f"launches per request, the same in each of {N_REQUESTS} requests: {launches}")
+    for i, t in enumerate(times):
+        print(f"request {i}: {t * 1e3:.2f} ms, {B / t:.4f} depth-maps/s [{card}]")
+    mean_s = sum(times) / len(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"mean request: {mean_s * 1e3:.2f} ms, {B / mean_s:.4f} depth-maps/s, "
+          f"peak memory {peak_gb:.2f} GB (timed requests) [{card}]")
+
+    # 4c. One more request, recording each kernel's inputs at every call and
+    # the TF32 flags the forward runs under (it must turn them off: the model
+    # is fp32, and phase 7 checks it at fp32).
+    recorded = {name: [] for name in specs}
     tf32_seen = set()
 
     def recorder(name, fn_):
@@ -293,52 +470,26 @@ def main() -> int:
             return fn_(*args, **kwargs)
         return wrapped
 
-    stagenet.warp_group_corr = recorder("warp_group_corr", originals[0])
-    stagenet.visibility_net = recorder("visibility_net", originals[1])
-    stagenet.depth_decode = recorder("depth_decode", originals[2])
+    originals = {name: getattr(spec["owner"], name) for name, spec in specs.items()}
+    for name, spec in specs.items():
+        setattr(spec["owner"], name, recorder(name, originals[name]))
     try:
-        t0 = time.perf_counter()
         fn(imgs, projs, dv)
         torch.cuda.synchronize()
-        print(f"warm-up request: {time.perf_counter() - t0:.3f} s")
     finally:
-        stagenet.warp_group_corr, stagenet.visibility_net, stagenet.depth_decode = originals
-    nstages = len(cfg.ndepths)
+        for name, spec in specs.items():
+            setattr(spec["owner"], name, originals[name])
     for name, calls in recorded.items():
-        if len(calls) != nstages:
-            raise RuntimeError(f"{name}: recorded {len(calls)} calls, want {nstages}")
+        if len(calls) != specs[name]["per_request"]:
+            raise RuntimeError(f"{name}: recorded {len(calls)} calls, "
+                               f"want {specs[name]['per_request']}")
     print(f"tf32 (matmul, cudnn): {torch.backends.cuda.matmul.allow_tf32}, "
           f"{torch.backends.cudnn.allow_tf32} outside the forward, "
           f"{sorted(tf32_seen)} inside it")
     if tf32_seen != {(False, False)}:
         raise RuntimeError("the fp32 forward ran with TF32 on")
 
-    # 4b. Timed requests; counts set to 0 just before, read just after.
-    torch.cuda.synchronize()
-    cuda_build.reset_launches()
-    times = []
-    for _ in range(N_REQUESTS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        depth, conf, stage_confs = fn(imgs, projs, dv)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = dict(cuda_build.LAUNCHES)
-    print(f"launches in {N_REQUESTS} requests: {launches}")
-    for name in recorded:
-        per_request = launches.get(name, 0) / N_REQUESTS
-        print(f"  {name}: {per_request:g} launches per request")
-        if launches.get(name, 0) != nstages * N_REQUESTS:
-            raise RuntimeError(f"{name}: {launches.get(name, 0)} launches in "
-                               f"{N_REQUESTS} requests, want {nstages} per request")
-    for i, t in enumerate(times):
-        print(f"request {i}: {t * 1e3:.2f} ms, {B / t:.4f} depth-maps/s [{card}]")
-    mean_s = sum(times) / len(times)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"mean request: {mean_s * 1e3:.2f} ms, {B / mean_s:.4f} depth-maps/s, "
-          f"peak memory {peak_gb:.2f} GB [{card}]")
-
-    # 4c. Where the device time goes in one request (not counted above).
+    # 4d. Where the device time goes in one request (not counted above).
     layers = layer_breakdown(torch, model, fn, (imgs, projs, dv))
     print("layers (device ms, one request): " + json.dumps(
         {k: round(v, 3) for k, v in layers.items()}))
@@ -366,7 +517,7 @@ def main() -> int:
     for s, (args, _) in enumerate(recorded["depth_decode"]):
         dv_s = args[1]
         with torch.inference_mode():
-            d_s, _ = originals[2](*args)
+            d_s, _ = originals["depth_decode"](*args)
         lo, hi = float(dv_s.min()), float(dv_s.max())
         if float(d_s.min()) < lo - 1e-3 or float(d_s.max()) > hi + 1e-3:
             raise RuntimeError(f"stage {s + 1}: depth outside its hypotheses [{lo}, {hi}]")
@@ -375,64 +526,35 @@ def main() -> int:
     # 6. Kernels against their plain versions, TF32 off.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    specs = {
-        "warp_group_corr": dict(kernel=warp_corr.warp_group_corr,
-                                plain=warp_corr.warp_group_corr_plain, cost=k1_cost,
-                                route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
-                                replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325"),
-        "visibility_net": dict(kernel=vis_net.visibility_net,
-                               plain=vis_net.visibility_net_plain, cost=k2_cost,
-                               route="cuda", source="mvsformer_torch/csrc/vis_net.cu",
-                               replaces="mvsformer_tpu/ops/pallas/vis_net.py:192"),
-        "depth_decode": dict(kernel=stage_tail.depth_decode,
-                             plain=stage_tail.depth_decode_plain, cost=k3_cost,
-                             route="triton", source="mvsformer_torch/ops/stage_tail.py",
-                             replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57"),
-    }
 
-    def check(name, s, args, kwargs):
+    def check(name, label, args, kwargs):
         spec = specs[name]
         with torch.inference_mode():
             got = spec["kernel"](*args, **kwargs)
             want = spec["plain"](*args, **kwargs)
             torch.cuda.synchronize()
-            if name == "warp_group_corr":
-                scale = max(1.0, float(want[0].abs().max()))
-                e_corr, e_ent = max_err(got[0], want[0]), max_err(got[1], want[1])
-                tol = f"corr <= {K1_RTOL_OF_SCALE:g}*{scale:.3f}, entropy <= {K1_ENT_ATOL:g}"
-                ok = e_corr <= K1_RTOL_OF_SCALE * scale and e_ent <= K1_ENT_ATOL
-                err = max(e_corr, e_ent)
-                detail = f"corr {e_corr:.3e}, entropy {e_ent:.3e}"
-            elif name == "visibility_net":
-                err = max_err(got, want)
-                tol, ok, detail = f"{K2_ATOL:g}", err <= K2_ATOL, f"{err:.3e}"
-            else:
-                e_d = float(((got[0] - want[0]).abs()
-                             - K3_DEPTH_RTOL * want[0].abs()).max())
-                e_c = float(((got[1] - want[1]).abs()
-                             - K3_CONF_RTOL * want[1].abs()).max())
-                err = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
-                tol = (f"depth {K3_DEPTH_ATOL:g}+{K3_DEPTH_RTOL:g}|d|, "
-                       f"conf {K3_CONF_ATOL:g}+{K3_CONF_RTOL:g}|c|")
-                ok = e_d <= K3_DEPTH_ATOL and e_c <= K3_CONF_ATOL
-                detail = (f"depth {max_err(got[0], want[0]):.3e}, "
-                          f"conf {max_err(got[1], want[1]):.3e}")
+            ok, err, detail, tol = spec["compare"](got, want)
             ms = time_ms(torch, lambda: spec["kernel"](*args, **kwargs))
             plain_ms = time_ms(torch, lambda: spec["plain"](*args, **kwargs), reps=3)
-        nbytes, flops = spec["cost"](args)
+            lib_ms = None
+            if "library" in spec:
+                lib, to_plain = spec["library"](torch, args)
+                lib_ms = time_ms(torch, lib)
+                detail += f"; library call max_abs_err {max_err(to_plain(lib()), want):.3e}"
+        nbytes, flops = spec["cost"](args, kwargs)
         b_ms, b_by = bound_ms(nbytes, flops)
-        print(f"{name} {s}: max_abs_err {detail} (tolerance {tol}) "
-              f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        lib_text = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        print(f"{name} {label}: max_abs_err {detail} (tolerance {tol}) "
+              f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_text}, "
               f"bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
         if not ok:
-            raise RuntimeError(f"{name} {s}: kernel disagrees with its plain version")
-        return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    bytes=nbytes, flops=flops)
+            raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
+        return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
 
-    per_stage = {name: [] for name in specs}
-    for name, calls in recorded.items():
-        for s, (args, kwargs) in enumerate(calls):
-            per_stage[name].append(check(name, f"stage{s + 1}", args, kwargs))
+    per_call = {name: [check(name, call_label(name, i, args), args, kwargs)
+                       for i, (args, kwargs) in enumerate(calls)]
+                for name, calls in recorded.items()}
     ref, src, src_projs, ref_proj, dv4 = recorded["warp_group_corr"][-1][0][:5]
     one_view = check("warp_group_corr", "stage4 V=1",
                      (ref, src[:, :1].contiguous(), src_projs[:, :1].contiguous(),
@@ -451,7 +573,7 @@ def main() -> int:
 
     kernels = []
     for name, spec in specs.items():
-        rows = per_stage[name]
+        rows = per_call[name]
         t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
         t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS_PER_S
         kernels.append({
@@ -462,7 +584,7 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": (sum(r["library_ms"] for r in rows) if "library" in spec else None),
         })
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
@@ -470,7 +592,7 @@ def main() -> int:
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
-        "per_stage": per_stage, "k1_one_view": one_view, "e2e_small_errors": e2e,
+        "per_call": per_call, "k1_one_view": one_view, "e2e_small_errors": e2e,
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
     }
     os.makedirs("chiprun_out", exist_ok=True)

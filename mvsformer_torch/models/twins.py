@@ -2,8 +2,10 @@
 
 Port of `mvsformer_tpu/models/twins.py`. Tokens stay in [B, H, W, C]
 between blocks, so window partitioning is a reshape and permute, and the
-Linear layers act on the last axis. Attention is a plain matmul with an
-fp32 softmax; drop-path is the identity at eval, so it has no module here.
+Linear layers act on the last axis. Windowed attention is a plain matmul
+with an fp32 softmax; global sub-sampled attention is K6 `gsa_attention`
+(the same maths, one kernel on the card). Drop-path is the identity at
+eval, so it has no module here.
 LayerNorm eps is 1e-6 and GELU is the tanh form, as in the JAX package.
 Attribute names are the reference checkpoint's (`patch_embeds`,
 `pos_block`, `blocks`, `norm_list`).
@@ -16,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from mvsformer_torch.models.blocks import gelu_tanh
+from mvsformer_torch.ops.gsa_attention import gsa_attention
 
 
 def _ln(dim):
@@ -98,20 +101,13 @@ class GlobalSubsampledAttention(nn.Module):
 
     def forward(self, x):  # [B, H, W, C]
         B, H, W, C = x.shape
-        nh = self.num_heads
-        hd = C // nh
-        q = self.q(x).reshape(B, H * W, nh, hd).transpose(1, 2)  # [B, nh, N, hd]
+        q = self.q(x).reshape(B, H * W, C)
         kv_in = x
         if self.sr_ratio > 1:
             kv_in = self.norm(_nhwc(self.sr(_nchw(x))))
-        nk = kv_in.shape[1] * kv_in.shape[2]
-        kv = self.kv(kv_in).reshape(B, nk, 2, nh, hd)
-        k = kv[:, :, 0].transpose(1, 2)
-        v = kv[:, :, 1].transpose(1, 2)
-        attn = torch.matmul(q, k.transpose(-1, -2)).float() * hd ** -0.5
-        attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, H, W, C)
-        return self.proj(out)
+        kv = self.kv(kv_in).reshape(B, -1, 2 * C)  # [k | v], heads contiguous in each
+        out = gsa_attention(q, kv[..., :C], kv[..., C:], self.num_heads)
+        return self.proj(out.reshape(B, H, W, C))
 
 
 class PosCNN(nn.Module):

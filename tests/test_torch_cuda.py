@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from mvsformer_torch.ops import cuda_build
+from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
+from mvsformer_torch.ops.fpn_level import LEVELS, fpn_level, fpn_level_plain
+from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 from mvsformer_torch.ops.stage_tail import depth_decode, depth_decode_plain
 from mvsformer_torch.ops.vis_net import visibility_net, visibility_net_plain
 from mvsformer_torch.ops.warp_corr import warp_group_corr, warp_group_corr_plain
@@ -103,3 +106,92 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         eye = torch.eye(4, device=dev)
         warp_group_corr(x, x[:, None], eye[None, None], eye[None],
                         torch.ones((1, 33, 8, 8), device=dev))
+
+
+def tensor(dev):
+    return lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+
+def head_weights(rng, t):
+    ks = [t(rng.standard_normal(s) * f) for s, f in
+          (((8, 3, 7, 7), 147 ** -0.5), ((8, 8, 5, 5), 200 ** -0.5), ((16, 8, 5, 5), 200 ** -0.5))]
+    folds = [(t(rng.uniform(0.5, 1.5, c)), t(0.1 * rng.standard_normal(c))) for c in (8, 8, 16)]
+    return ks[0], folds[0], ks[1], folds[1], ks[2], folds[2]
+
+
+# H and W not multiples of the 16 x 32 tile, odd sizes (down0 of ceil(H/2)).
+@pytest.mark.parametrize("N,H,W", [(2, 37, 45), (1, 64, 96), (1, 15, 70)])
+def test_encoder_head_matches_plain(dev, N, H, W):
+    rng = np.random.default_rng(3)
+    t = tensor(dev)
+    imgs = t(rng.standard_normal((N, 3, H, W)))
+    weights = head_weights(rng, t)
+    before = cuda_build.LAUNCHES["encoder_head"]
+    got = encoder_head(imgs, *weights)
+    assert cuda_build.LAUNCHES["encoder_head"] == before + 1
+    want = encoder_head_plain(imgs, *weights)
+    assert got[1].shape == (N, 16, (H + 1) // 2, (W + 1) // 2)
+    for g, w in zip(got, want):  # fp32; 147-200 products per output summed in another order
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def level_weights(rng, t, cl, co):
+    return (t(rng.standard_normal((64, cl, 1, 1)) * cl ** -0.5), t(rng.standard_normal(64) * 0.1),
+            t(rng.standard_normal((co, 64, 3, 3)) * 576 ** -0.5), t(rng.standard_normal(co) * 0.1),
+            (t(rng.uniform(0.5, 1.5, co)), t(0.1 * rng.standard_normal(co))))
+
+
+# Odd h and w, tiles cut by the image edge, a 1-pixel-high level.
+@pytest.mark.parametrize("emit", [True, False])
+@pytest.mark.parametrize("N,h,w", [(2, 7, 9), (1, 12, 20), (1, 1, 3)])
+@pytest.mark.parametrize("cl,co", LEVELS)
+def test_fpn_level_matches_plain(dev, cl, co, N, h, w, emit):
+    rng = np.random.default_rng(4)
+    t = tensor(dev)
+    prev, lat = t(rng.standard_normal((N, 64, h, w))), t(rng.standard_normal((N, cl, 2 * h, 2 * w)))
+    weights = level_weights(rng, t, cl, co)
+    before = cuda_build.LAUNCHES["fpn_level"]
+    got = fpn_level(prev, lat, *weights, emit_intra=emit)
+    assert cuda_build.LAUNCHES["fpn_level"] == before + 1
+    want = fpn_level_plain(prev, lat, *weights, emit_intra=emit)
+    # fp32; the same align-corners weights, 64 x 9 + cl products in another order.
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# N not a multiple of the 128-row block; Nk above the 64-key chunk and not
+# a multiple of it, or a single key; k and v as the halves of one tensor.
+@pytest.mark.parametrize("B,N,Nk,nh", [(2, 300, 100, 2), (1, 1000, 432, 4), (3, 17, 1, 1),
+                                       (1, 129, 64, 16)])
+def test_gsa_attention_matches_plain(dev, B, N, Nk, nh):
+    rng = np.random.default_rng(5)
+    t = tensor(dev)
+    C = 32 * nh
+    q, kv = t(rng.standard_normal((B, N, C))), t(rng.standard_normal((B, Nk, 2 * C)))
+    before = cuda_build.LAUNCHES["gsa_attention"]
+    got = gsa_attention(q, kv[..., :C], kv[..., C:], nh)
+    assert cuda_build.LAUNCHES["gsa_attention"] == before + 1
+    want = gsa_attention_plain(q, kv[..., :C], kv[..., C:], nh)
+    # fp32 logits and probabilities; sums in another order.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_new_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(6)
+    t = tensor(dev)
+    imgs = t(rng.standard_normal((1, 3, 16, 16)))
+    k00, f00, k01, f01, kd, fd = head_weights(rng, t)
+    with pytest.raises(ValueError):  # a CPU weight among CUDA tensors
+        encoder_head(imgs, k00.cpu(), f00, k01, f01, kd, fd)
+    prev, lat = t(np.zeros((1, 64, 4, 4))), t(np.zeros((1, 8, 8, 8)))
+    w8 = level_weights(rng, t, 8, 8)
+    with pytest.raises(ValueError):  # a CPU input among CUDA tensors
+        fpn_level(prev.cpu(), lat, *w8)
+    with pytest.raises(ValueError):  # (cl, co) the kernel is not built for
+        fpn_level(prev, lat, *level_weights(rng, t, 8, 16))
+    q = t(np.zeros((1, 8, 64)))
+    with pytest.raises(ValueError):  # a CPU key among CUDA tensors
+        gsa_attention(q, q.cpu(), q, 2)
+    with pytest.raises(ValueError):  # head width 16, not 32
+        gsa_attention(q, q, q, 4)
+    with pytest.raises(TypeError):  # float64 is not taken
+        gsa_attention(q.double(), q.double(), q.double(), 2)

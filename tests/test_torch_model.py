@@ -74,8 +74,9 @@ def randomise_bn(params, stats, rng):
 def both():
     rng = np.random.default_rng(0)
     imgs, projs, dv = make_batch(rng)
-    # The slice's configuration: the FPN encoder head and levels 2-3 as plain
-    # convolutions (exact rewrites of the fused kernels, same weights).
+    # The JAX flags of the fused FPN kernels forced off: the encoder head and
+    # levels 2-3 as plain convolutions (exact rewrites of the kernels, same
+    # weights). jax_default below runs the default configuration.
     jcfg = JaxModelConfig(**CFG, fused_enc_head=False, fused_fpn_final=False,
                           fused_fpn_l2=False)
     jmodel = jax_build_model(jcfg, dtype=jnp.float32)
@@ -131,6 +132,40 @@ def test_refined_depth_and_combined_confidence_match_jax(both):
             rtol=0, atol=CONF_ATOL)
     assert np.isfinite(depth.numpy()).all()
     assert ((conf.numpy() > 0) & (conf.numpy() <= 1)).all()
+
+
+@pytest.fixture(scope="module")
+def jax_default(both):
+    """The JAX model built from the default ModelConfig (fused encoder head,
+    fused FPN level 2 and final level on), applied to the same variables: the
+    configuration the port runs. On the CPU its kernel gates stay closed and
+    it runs the XLA path; tests/test_torch_fpn_kernels.py holds that path's
+    FPN to the Pallas kernels in interpret mode. fused_ok is not patched:
+    v4's edges differ from the XLA warp (ROADMAP C.1)."""
+    jcfg = JaxModelConfig(**CFG)
+    assert jcfg.fused_enc_head and jcfg.fused_fpn_final and jcfg.fused_fpn_l2
+    jmodel = jax_build_model(jcfg, dtype=jnp.float32)
+    imgs, projs, dv = both["batch"]
+    out = jax.jit(lambda v, i, p, d: jmodel.apply(v, i, p, d, training=False, tmp=TMPS))(
+        {"params": both["params"], "batch_stats": both["stats"]},
+        jnp.asarray(imgs), jax.tree.map(jnp.asarray, projs), jnp.asarray(dv))
+    return jax.tree.map(np.asarray, out)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4, "refined"])
+def test_port_matches_jax_default_config(both, jax_default, stage):
+    t = both["tout"]
+    if stage == "refined":
+        np.testing.assert_allclose(t["refined_depth"].numpy(), jax_default["refined_depth"],
+                                   rtol=0, atol=DEPTH_ATOL)
+        np.testing.assert_allclose(t["photometric_confidence"].numpy(),
+                                   jax_default["photometric_confidence"], rtol=0,
+                                   atol=CONF_ATOL)
+        return
+    j, t = jax_default[f"stage{stage}"], t[f"stage{stage}"]
+    np.testing.assert_allclose(t["depth"].numpy(), j["depth"], rtol=0, atol=DEPTH_ATOL)
+    np.testing.assert_allclose(t["photometric_confidence"].numpy(),
+                               j["photometric_confidence"], rtol=0, atol=CONF_ATOL)
 
 
 def test_bridge_round_trip_gives_back_the_flax_tree(both):
