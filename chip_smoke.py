@@ -37,7 +37,28 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. Run the __graft_entry__ request (B=1, 3 views, 128x128, 192 depths) on
    the card and, with the same weights, on the CPU (the plain versions),
    TF32 off, and compare depth and confidences.
-8. Print one JSON line of per-kernel numbers, then, last, the result line
+8. Train TwinMVSNet at the JAX package's training shape: the default
+   Config (drop path 0.2 from a seeded CUDA generator, AdamW with the twin
+   LR split and warmup-cosine), B=8 as 2 micro-batches of 4
+   (`scale_batch_map["512"]`), 5 views, 512x640, 192 depths, the cameras
+   above and a depth_gt/mask per stage as `_synthetic_batch(with_gt=True)`
+   builds them, random weights from a seeded torch.Generator. One warm-up
+   step, then 3 timed steps through `train.step.TrainStep`, each with the
+   launch counts set to 0 just before it and read just after it: K7
+   `warp_corr_fwd` and K8 `warp_corr_bwd` launch 4 times per micro-batch
+   (8 per step), K1-K6 never. Loss and every gradient must be finite and
+   every trainable tensor's gradient non-zero. One more step is timed
+   layer by layer, forward and backward, under torch.profiler (the
+   device's idle share and top kernels), and one records the tensors it
+   feeds K7 and K8.
+9. With TF32 off, hold K7 and K8 against their plain versions on the card
+   at each of those 8 + 8 launches, and time both.
+10. Run one fp32 training step (the __graft_entry__ request's cameras,
+   B=2 as 2 micro-batches, 3 views, 128x128, 192 depths, drop path 0, no
+   warmup) on the card and, with the same weights and batch, on the CPU,
+   and compare the losses, the gradients, the BN running statistics and
+   the updated parameters.
+11. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Bounds: the larger of bytes moved (each input read once, each output
@@ -90,6 +111,31 @@ E2E_SHAPE = (1, 3, 128, 128)  # B, V, H, W
 E2E_DEPTH_ATOL = 1e-2         # depth units over the 425-900 range
 E2E_CONF_ATOL = 1e-4
 
+# Training: the JAX package's training shape (DataConfig: batch_size 8,
+# scale_batch_map["512"] 4, nviews 5, 512x640, 192 depths).
+TRAIN_B, TRAIN_MICRO, TRAIN_V, TRAIN_H, TRAIN_W = 8, 4, 5, 512, 640
+N_STEPS = 3
+# K7: K1's kernel body without the entropy; the same bound as K1's corr.
+K7_RTOL_OF_SCALE = 1e-4   # of max(1, max |corr|)
+# K8: fp32 atomics sum each dsrc entry's up to 4*D terms, and each dref
+#     entry's V*D terms, in an order that varies from run to run; the plain
+#     version sums the same products through autograd's scatter.
+K8_RTOL_OF_SCALE = 1e-5   # per output (dref, dsrc), of its max |value|
+# One training step on the card against the CPU, fp32 with TF32 off (the
+# kernels take fp32 only). A tiny randomly initialised network amplifies
+# fp32 rounding in its gradients: on the CPU the JAX model's move by up to
+# 5.3e-2 of a tensor's largest entry when the images move by 1e-6 of their
+# value, and by 9.2e-5 in float64 (`python -m tests.test_torch_train_step`
+# prints both). So the gradient bounds here are measured ones, not the
+# float64 CPU test's: the card read 4.05e-2 of scale and 1.04e-2 in L2 (an
+# H100 80GB HBM3 at 700 W).
+STEP_SHAPE = (2, 3, 128, 128)  # B (2 micro-batches of 1), V, H, W
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_OF_SCALE = 5e-2      # |card - cpu| <= 5e-4 + this * max|cpu|, per tensor
+STEP_GRAD_L2 = 3e-2            # ||card - cpu|| <= this * ||cpu|| where ||cpu|| > 1e-4
+STEP_STATS_RTOL, STEP_STATS_ATOL = 1e-4, 1e-5
+STEP_UPDATE_OF_LR = 1e-2       # where the gradient's sign is certain
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -100,6 +146,13 @@ def card_line() -> str:
 
 def synthetic_request(torch, b=B, v_=V, h=H, w=W, device="cuda"):
     """__graft_entry__._synthetic_batch (DTU eval shape by default), as tensors."""
+    batch = synthetic_batch(torch, b, v_, h, w, device)
+    return batch["imgs"], batch["proj_matrices"], batch["depth_values"]
+
+
+def synthetic_batch(torch, b, v_, h, w, device="cuda", with_gt=False):
+    """__graft_entry__._synthetic_batch as a dict of tensors: imgs,
+    proj_matrices, depth_values and, with_gt, depth_gt and mask per stage."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -118,7 +171,16 @@ def synthetic_request(torch, b=B, v_=V, h=H, w=W, device="cuda"):
         projs[f"stage{s}"] = torch.from_numpy(cams).to(device)
     dv = np.broadcast_to(np.linspace(DEPTH_MIN, DEPTH_MAX, NDEPTH_FULL,
                                      dtype=np.float32)[None], (b, NDEPTH_FULL)).copy()
-    return torch.from_numpy(imgs).to(device), projs, torch.from_numpy(dv).to(device)
+    batch = {"imgs": torch.from_numpy(imgs).to(device), "proj_matrices": projs,
+             "depth_values": torch.from_numpy(dv).to(device)}
+    if with_gt:
+        gt, mask = {}, {}
+        for s, scale in zip(range(1, 5), (8, 4, 2, 1)):
+            gt[f"stage{s}"] = torch.from_numpy(
+                rng.uniform(430, 890, (b, h // scale, w // scale)).astype(np.float32)).to(device)
+            mask[f"stage{s}"] = torch.ones((b, h // scale, w // scale), device=device)
+        batch["depth_gt"], batch["mask"] = gt, mask
+    return batch
 
 
 def time_ms(torch, fn, reps=10):
@@ -193,6 +255,30 @@ def k6_cost(args, kwargs):
     return 4 * (2 * b * n * c + 2 * b * nk * c), 4 * b * n * nk * c + 5 * b * nh * n * nk
 
 
+def k7_cost(args, kwargs):
+    ref, src, _, _, dv = args[:5]
+    b, v, h, w, c = src.shape
+    d, g, hw = dv.shape[1], 8, h * w
+    nbytes = 4 * (b * hw * c + b * v * hw * c + b * d * hw + b * v * 16 + b * 16
+                  + b * v * g * d * hw)
+    # per (view, depth, pixel): ~30 coordinate/weight ops, 4 taps x C FMAs,
+    # C FMAs for the products, G means.
+    return nbytes, b * v * d * hw * (30 + 8 * c + 2 * c + g)
+
+
+def k8_cost(args, kwargs):
+    ref, src, _, _, dv, dcorr = args[:6]
+    b, v, h, w, c = src.shape
+    d, g, hw = dv.shape[1], 8, h * w
+    # reads ref, src, dv, dcorr and the cameras; writes dref and dsrc.
+    nbytes = 4 * (2 * b * hw * c + 2 * b * v * hw * c + b * d * hw + dcorr.numel()
+                  + b * v * 16 + b * 16)
+    # per (view, depth, pixel): ~30 coordinate/weight ops, the warped vector
+    # again (4 taps x C FMAs), C FMAs into dref, the C products ref * dcex
+    # once, then per tap and channel a product and an add into dsrc.
+    return nbytes, b * v * d * hw * (30 + 8 * c + 2 * c + c + 8 * c + g)
+
+
 def bound_ms(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
@@ -259,14 +345,20 @@ def device_busy(torch, fn, request):
         fn(*request)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = kernel_times(torch, prof)
+    return busy_ms, wall_ms, top
+
+
+def kernel_times(torch, prof):
+    """(device kernel ms, the 12 kernels that took longest) of a profile;
+    (None, []) when the profiler saw no device events."""
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / 1e3
     if not by_name:
-        return None, wall_ms, []
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return sum(by_name.values()), wall_ms, top
+        return None, []
+    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
 
 
 def small_request_errors(torch, model, make_infer_fn):
@@ -286,17 +378,22 @@ def small_request_errors(torch, model, make_infer_fn):
     return errs
 
 
-def rel_compare(rtol_of_scale, names):
-    """Compare outputs one by one: |got - want| <= rtol * max(1, max|want|)."""
+def rel_compare(rtol_of_scale, names, floor=1.0):
+    """Compare outputs one by one: |got - want| <= rtol * max(floor, max|want|).
+    A floor of 0 makes the bound relative to the output's own scale, for
+    outputs whose scale follows their inputs' (a gradient of a mean over many
+    pixels is small)."""
     def compare(got, want):
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         ok, err, parts = True, 0.0, []
         for name, g, w in zip(names, got, want):
-            e, allowed = max_err(g, w), rtol_of_scale * max(1.0, float(w.abs().max()))
+            e, allowed = max_err(g, w), rtol_of_scale * max(floor, float(w.abs().max()))
             ok, err = ok and e <= allowed, max(err, e)
             parts.append(f"{name} {e:.3e} (<= {allowed:.3e})")
-        return ok, err, ", ".join(parts), f"{rtol_of_scale:g} of max(1, max |output|)"
+        return (ok, err, ", ".join(parts),
+                f"{rtol_of_scale:g} of max({floor:g}, max |output|)" if floor
+                else f"{rtol_of_scale:g} of max |output|")
     return compare
 
 
@@ -342,7 +439,386 @@ def call_label(name, i, args):
         return f"level{i + 1}"
     if name == "gsa_attention":
         return f"block{i + 1} N={args[0].shape[1]} C={args[0].shape[2]}"
+    if name == "warp_corr_bwd":  # the backward meets the stages in reverse
+        return f"stage{4 - i}"
     return f"stage{i + 1}"
+
+
+def check_kernel(torch, card, name, spec, label, args, kwargs):
+    """Hold one launch of a kernel against its plain version on the same
+    inputs, and time both (and the library call, where there is one)."""
+    with torch.no_grad():
+        got = spec["kernel"](*args, **kwargs)
+        want = spec["plain"](*args, **kwargs)
+        torch.cuda.synchronize()
+        ok, err, detail, tol = spec["compare"](got, want)
+        ms = time_ms(torch, lambda: spec["kernel"](*args, **kwargs))
+        plain_ms = time_ms(torch, lambda: spec["plain"](*args, **kwargs), reps=3)
+        lib_ms = None
+        if "library" in spec:
+            lib, to_plain = spec["library"](torch, args)
+            lib_ms = time_ms(torch, lib)
+            detail += f"; library call max_abs_err {max_err(to_plain(lib()), want):.3e}"
+    nbytes, flops = spec["cost"](args, kwargs)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    lib_text = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    print(f"{name} {label}: max_abs_err {detail} (tolerance {tol}) "
+          f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_text}, "
+          f"bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
+    return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+
+
+def kernel_row(name, spec, rows, launches):
+    """One entry of the kernels JSON line, summed over the checked launches."""
+    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
+    t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS_PER_S
+    return {
+        "name": name, "route": spec["route"], "source": spec["source"],
+        "replaces": spec["replaces"], "launches": launches,
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": (sum(r["library_ms"] for r in rows) if "library" in spec else None),
+    }
+
+
+def train_layer_breakdown(torch, model, step, batch):
+    """Device time per layer in one training step, under torch.profiler.
+
+    Forward: CUDA events on forward pre/post hooks, as `layer_breakdown`.
+    Backward: the device time of the kernels each autograd node launches
+    (the profiler's record of that node, matched by its sequence number),
+    given to the layer whose forward made the node: a layer's nodes are
+    those reachable from its outputs without passing its inputs or a
+    parameter's gradient accumulator. A nested layer (a stage's visibility
+    CNN and cost regulariser) counts inside its stage as well. The
+    optimizer step is spanned by CUDA events on the optimizer's hooks.
+    Returns (split, kernel ms, wall ms, top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nst = len(model.fusions)
+    top = ["encoder", "vit", "decoder_vit", "decoder"] + [f"fusions.{i}" for i in range(nst)]
+    names = top + [f"fusions.{i}.{sub}" for i in range(nst) for sub in ("vis", "cost_reg")]
+    modules = dict(model.named_modules())
+    fwd = {n: [] for n in names}
+    owner, inputs, hooks = {}, {}, []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            return [x] if x.grad_fn is not None else []
+        if isinstance(x, (list, tuple)):
+            return [t for y in x for t in tensors(y)]
+        if isinstance(x, dict):
+            return [t for y in x.values() for t in tensors(y)]
+        return []
+
+    def claim(name, outs, ins):
+        stop = {t.grad_fn for t in ins}
+        seen, todo = set(), [t.grad_fn for t in outs]
+        while todo:
+            node = todo.pop()
+            if node is None or node in seen or node in stop or \
+                    type(node).__name__ == "AccumulateGrad":
+                continue
+            seen.add(node)
+            owner.setdefault(node._sequence_nr(), name)  # an inner layer claims first
+            todo.extend(f for f, _ in node.next_functions)
+
+    for name in names:
+        def pre(mod, args, name=name):
+            fwd[name].append([event(), None])
+            inputs[name] = tensors(args)
+
+        def post(mod, args, out, name=name):
+            fwd[name][-1][1] = event()
+            claim(name, tensors(out), inputs.pop(name))
+        hooks += [modules[name].register_forward_pre_hook(pre),
+                  modules[name].register_forward_hook(post)]
+    opt = []
+    hooks += [step.optimizer.register_step_pre_hook(lambda *a: opt.append(event())),
+              step.optimizer.register_step_post_hook(lambda *a: opt.append(event()))]
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            start = event()
+            step(batch)
+            end = event()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in hooks:
+            h.remove()
+    backward = {n: 0.0 for n in names}
+    for e in prof.events():
+        if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr in owner:
+            o = owner[e.sequence_nr]
+            for n in names:
+                if o == n or o.startswith(n + "."):
+                    backward[n] += e.device_time_total / 1e3
+    out = {"forward": {n: sum(a.elapsed_time(b) for a, b in fwd[n]) for n in names},
+           "backward (kernels)": backward}
+    out["optimizer"] = opt[0].elapsed_time(opt[-1])
+    out["total"] = start.elapsed_time(end)
+    out["other (resizes, hypotheses, loss, view split, gradient accumulation, idle)"] = (
+        out["total"] - out["optimizer"]
+        - sum(out["forward"][n] + backward[n] for n in top))
+    kernel_ms, top_kernels = kernel_times(torch, prof)
+    return out, kernel_ms, wall_ms, top_kernels
+
+
+def grads_of(model):
+    return {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+
+
+def compare_steps(torch, card_model, cpu_model, before, card_metrics, cpu_metrics, opt_cfg):
+    """Card against CPU after one training step from the same weights:
+    (ok, {what: worst error}, message lines)."""
+    lines, errs, ok = [], {}, True
+    for k, v in cpu_metrics.items():
+        if k.startswith("loss"):
+            e = abs(card_metrics[k] - v)
+            errs[k] = e
+            if e > STEP_LOSS_RTOL * abs(v):
+                ok = False
+                lines.append(f"{k}: card {card_metrics[k]:.7f}, cpu {v:.7f}")
+    card_g, cpu_g = grads_of(card_model), grads_of(cpu_model)
+    worst_scale, worst_l2, worst_at = 0.0, 0.0, None
+    for n, want in cpu_g.items():
+        got = card_g[n].cpu()
+        e = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if e > 5e-4 + STEP_GRAD_OF_SCALE * scale:
+            ok = False
+            lines.append(f"grad {n}: max error {e:.3e}, scale {scale:.3e}")
+        norm = float(want.norm())
+        if norm > 1e-4:  # the worst errors are reported where the gradient is not ~0
+            if e / scale > worst_scale:
+                worst_scale, worst_at = e / scale, n
+            rel = float((got - want).norm()) / norm
+            worst_l2 = max(worst_l2, rel)
+            if rel > STEP_GRAD_L2:
+                ok = False
+                lines.append(f"grad {n}: L2 error {rel:.3e} of its norm")
+    errs["grad_of_scale"], errs["grad_l2"] = worst_scale, worst_l2
+    lines.append(f"largest gradient error, of its tensor's scale: {worst_scale:.3e} at {worst_at}")
+    card_b, worst_stat = dict(card_model.named_buffers()), 0.0
+    for n, want in cpu_model.named_buffers():
+        if n.endswith(("running_mean", "running_var")):
+            e = (card_b[n].cpu() - want).abs()
+            worst_stat = max(worst_stat, float(e.max()))
+            if bool((e > STEP_STATS_ATOL + STEP_STATS_RTOL * want.abs()).any()):
+                ok = False
+                lines.append(f"running stat {n}: max error {float(e.max()):.3e}")
+    errs["running_stats"] = worst_stat
+    card_p, worst_upd = dict(card_model.named_parameters()), 0.0
+    for n, p in cpu_model.named_parameters():
+        lr = opt_cfg.vit_lr if n.startswith("vit.") else opt_cfg.lr
+        got = card_p[n].detach().cpu() - before[n]
+        want = p.detach() - before[n]
+        g = cpu_g[n]
+        pmax = float(before[n].abs().max())
+        ulps = 2.5e-7 * max(1.0, pmax)  # two fp32 roundings of the weight
+        if float(g.norm()) > 1e-4:
+            sure = g.abs() >= 0.1 * g.abs().max()
+            e = float((got[sure] - want[sure]).abs().max())
+            worst_upd = max(worst_upd, e / lr)
+            if e > STEP_UPDATE_OF_LR * lr + ulps:
+                ok = False
+                lines.append(f"update {n}: max error {e:.3e} where the gradient sign is certain")
+        bound = lr * (1 + opt_cfg.weight_decay * pmax) + ulps
+        if float(got.abs().max()) > bound:
+            ok = False
+            lines.append(f"update {n}: moved {float(got.abs().max()):.3e}, more than one step")
+    errs["update_of_lr"] = worst_upd
+    return ok, errs, lines
+
+
+def training_phase(torch, card, eval_kernels):
+    """Phases 8-10. Returns the details, with the K7/K8 rows of the kernels
+    line under "kernels"."""
+    import copy
+
+    from mvsformer_torch.config import Config
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build, warp_corr, warp_corr_train
+    from mvsformer_torch.train.step import TrainStep
+
+    cfg = Config()
+    sbm = cfg.data.multi_scale_args.scale_batch_map
+    if cfg.data.batch_size != TRAIN_B or int(sbm[str(TRAIN_H)]) != TRAIN_MICRO:
+        raise RuntimeError("the default DataConfig no longer gives the training shape")
+    n_micro = TRAIN_B // TRAIN_MICRO
+    nstages = len(cfg.arch.ndepths)
+    specs = {
+        "warp_corr_fwd": dict(
+            kernel=warp_corr.warp_corr_fwd, plain=warp_corr.warp_corr_fwd_plain,
+            owner=warp_corr_train, per_step=nstages * n_micro, cost=k7_cost,
+            compare=rel_compare(K7_RTOL_OF_SCALE, ("corr",)),
+            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:694"),
+        "warp_corr_bwd": dict(
+            kernel=warp_corr_train.warp_corr_bwd, plain=warp_corr_train.warp_corr_bwd_plain,
+            owner=warp_corr_train, per_step=nstages * n_micro, cost=k8_cost,
+            compare=rel_compare(K8_RTOL_OF_SCALE, ("dref", "dsrc"), floor=0.0),
+            route="cuda", source="mvsformer_torch/csrc/warp_corr_bwd.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr_bwd.py:197"),
+    }
+
+    # 8a. The model, the optimizer and the batch.
+    t0 = time.perf_counter()
+    model = build_model(cfg.arch, device="cuda", train=True)
+    random_init_(model, torch.Generator().manual_seed(1))
+    step = TrainStep(model, cfg, seed=0)
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, with_gt=True)
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    print(f"training: TwinMVSNet alt_gvt_small fp32, drop path "
+          f"{model.vit.blocks[-1][-1].drop_path_rate:.2f} at the last block, "
+          f"{len(trainable)} trainable tensors, B={TRAIN_B} as {n_micro} micro-batches of "
+          f"{TRAIN_MICRO}, {TRAIN_V} views, {TRAIN_H}x{TRAIN_W}, {NDEPTH_FULL} depths; "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step(batch)
+    torch.cuda.synchronize()
+    print(f"warm-up step: {time.perf_counter() - t0:.3f} s")
+
+    # 8b. Timed steps, each driving the training path once.
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, metrics = [], None, []
+    for _ in range(N_STEPS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        for name, spec in specs.items():
+            if counts.get(name, 0) != spec["per_step"]:
+                raise RuntimeError(f"{name}: {counts.get(name, 0)} launches in a training "
+                                   f"step, want {spec['per_step']}")
+        ran = {n: counts[n] for n in eval_kernels if counts.get(n, 0)}
+        if ran:
+            raise RuntimeError(f"eval-only kernels launched in a training step: {ran}")
+        launches = launches or counts
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = sum(times) / len(times)
+    print(f"launches per training step, the same in each of {N_STEPS} steps: {launches}")
+    for i, (t, m) in enumerate(zip(times, metrics)):
+        print(f"step {i}: {t * 1e3:.2f} ms, loss {m['loss']:.5f} ("
+              + ", ".join(f"{k[5:]} {m[k]:.5f}" for k in m if k.startswith("loss_"))
+              + f"), grad norm {m['grad_norm']:.5f}, lr {m['lr']:.3e} [{card}]")
+    print(f"mean training step: {mean_s * 1e3:.2f} ms, {1 / mean_s:.4f} train-steps/s, "
+          f"{TRAIN_B / mean_s:.3f} samples/s, peak memory {peak_gb:.2f} GB (timed steps) [{card}]")
+
+    # 8c. The last step's loss and gradients.
+    import math
+
+    if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k.startswith("loss")):
+        raise RuntimeError("non-finite training loss")
+    bad = [n for n, g in grads_of(model).items()
+           if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    if bad:
+        raise RuntimeError(f"{len(bad)} trainable tensors with a missing, non-finite or "
+                           f"all-zero gradient: {bad[:8]}")
+    print(f"gradients: all {len(trainable)} trainable tensors finite and non-zero")
+
+    # 8d. Layer split of one step, and the device's idle share.
+    layers, busy_ms, wall_ms, top = train_layer_breakdown(torch, model, step, batch)
+    print("training step layers (device ms): " + json.dumps(
+        {k: ({n: round(t, 3) for n, t in v.items()} if isinstance(v, dict) else round(v, 3))
+         for k, v in layers.items()}))
+    if busy_ms is None:
+        print(f"profiled training step: {wall_ms:.2f} ms wall; device busy share not measured "
+              f"(the profiler saw no device events)")
+    else:
+        print(f"profiled training step: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms of kernels, "
+              f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} [{card}]")
+        for name, t in top:
+            print(f"  {t:9.3f} ms  {name[:110]}")
+
+    # 8e. One more step, recording the tensors it feeds K7 and K8 at every
+    # launch (the Function calls them through warp_corr_train's globals).
+    recorded = {name: [] for name in specs}
+    originals = {name: getattr(warp_corr_train, name) for name in specs}
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            recorded[name].append((args, kwargs))
+            return originals[name](*args, **kwargs)
+        return wrapped
+
+    for name in specs:
+        setattr(warp_corr_train, name, recorder(name))
+    try:
+        step(batch)
+        torch.cuda.synchronize()
+    finally:
+        for name in specs:
+            setattr(warp_corr_train, name, originals[name])
+
+    for name, spec in specs.items():
+        if len(recorded[name]) != spec["per_step"]:
+            raise RuntimeError(f"{name}: recorded {len(recorded[name])} calls, "
+                               f"want {spec['per_step']}")
+
+    # 9. K7 and K8 against their plain versions, TF32 off.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    per_call = {name: [check_kernel(torch, card, name, spec, f"micro{i // nstages + 1} "
+                                    + call_label(name, i % nstages, args), args, kwargs)
+                       for i, (args, kwargs) in enumerate(recorded[name])]
+                for name, spec in specs.items()}
+    kernels = [kernel_row(name, spec, per_call[name], launches.get(name, 0))
+               for name, spec in specs.items()]
+    del recorded, model, step, batch
+    torch.cuda.empty_cache()
+
+    # 10. One step on the card against the CPU.
+    sb, sv, sh, sw = STEP_SHAPE
+    small = Config()
+    small.arch.vit_args.drop_path_rate = 0.0
+    small.optimizer.warmup_steps = 0
+    small.data.multi_scale_args.scale_batch_map = {str(sh): 1}
+    cpu_model = build_model(small.arch, device="cpu", train=True)
+    random_init_(cpu_model, torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(cpu_model).cuda()
+    before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    t0 = time.perf_counter()
+    card_metrics = TrainStep(card_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device="cuda", with_gt=True))
+    cpu_metrics = TrainStep(cpu_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device="cpu", with_gt=True))
+    ok, step_errs, lines = compare_steps(torch, card_model, cpu_model, before, card_metrics,
+                                         cpu_metrics, small.optimizer)
+    print(f"training step {STEP_SHAPE} on the card against the CPU ({time.perf_counter() - t0:.1f}"
+          f" s): loss {card_metrics['loss']:.6f} / {cpu_metrics['loss']:.6f}; worst errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in step_errs.items())
+          + f" (bounds: loss {STEP_LOSS_RTOL:g} relative; gradients {STEP_GRAD_OF_SCALE:g} of "
+          f"scale + 5e-4 and {STEP_GRAD_L2:g} in L2; running stats {STEP_STATS_ATOL:g} + "
+          f"{STEP_STATS_RTOL:g} relative; updates {STEP_UPDATE_OF_LR:g} of the LR where the "
+          f"gradient sign is certain) " + ("ok" if ok else "FAILED"), flush=True)
+    for line in lines[-20:]:
+        print(f"  {line}")
+    if not ok:
+        raise RuntimeError("the training step on the card disagrees with the CPU step")
+    return {"kernels": kernels, "step_ms": [t * 1e3 for t in times],
+            "train_steps_per_s": 1 / mean_s, "peak_memory_gb": peak_gb, "launches": launches,
+            "metrics": metrics, "layers_ms": layers, "per_call": per_call,
+            "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
+            "card_vs_cpu_step": step_errs,
+            "shape": {"B": TRAIN_B, "micro": TRAIN_MICRO, "V": TRAIN_V, "H": TRAIN_H,
+                      "W": TRAIN_W, "depths": NDEPTH_FULL}}
 
 
 def main() -> int:
@@ -528,29 +1004,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     def check(name, label, args, kwargs):
-        spec = specs[name]
-        with torch.inference_mode():
-            got = spec["kernel"](*args, **kwargs)
-            want = spec["plain"](*args, **kwargs)
-            torch.cuda.synchronize()
-            ok, err, detail, tol = spec["compare"](got, want)
-            ms = time_ms(torch, lambda: spec["kernel"](*args, **kwargs))
-            plain_ms = time_ms(torch, lambda: spec["plain"](*args, **kwargs), reps=3)
-            lib_ms = None
-            if "library" in spec:
-                lib, to_plain = spec["library"](torch, args)
-                lib_ms = time_ms(torch, lib)
-                detail += f"; library call max_abs_err {max_err(to_plain(lib()), want):.3e}"
-        nbytes, flops = spec["cost"](args, kwargs)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        lib_text = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
-        print(f"{name} {label}: max_abs_err {detail} (tolerance {tol}) "
-              f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_text}, "
-              f"bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
-        if not ok:
-            raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
-        return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+        return check_kernel(torch, card, name, specs[name], label, args, kwargs)
 
     per_call = {name: [check(name, call_label(name, i, args), args, kwargs)
                        for i, (args, kwargs) in enumerate(calls)]
@@ -571,21 +1025,15 @@ def main() -> int:
     if not e2e_ok:
         raise RuntimeError("the forward on the card disagrees with the CPU forward")
 
-    kernels = []
-    for name, spec in specs.items():
-        rows = per_call[name]
-        t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
-        t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS_PER_S
-        kernels.append({
-            "name": name, "route": spec["route"], "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches.get(name, 0),
-            "max_abs_err": max(r["err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": (sum(r["library_ms"] for r in rows) if "library" in spec else None),
-        })
+    kernels = [kernel_row(name, spec, per_call[name], launches.get(name, 0))
+               for name, spec in specs.items()]
+
+    # 8-10. Training.
+    del fn, model, recorded
+    torch.cuda.empty_cache()
+    train = training_phase(torch, card, eval_kernels=tuple(specs))
+    kernels += train.pop("kernels")
+
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s,
@@ -594,6 +1042,7 @@ def main() -> int:
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
         "per_call": per_call, "k1_one_view": one_view, "e2e_small_errors": e2e,
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
+        "training": train,
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,13 +1,20 @@
 // K1: plane-sweep warp + group correlation + depth entropy, all source views
-// in one launch.
+// in one launch; and K7, the same warp and correlation without the entropy.
 //
-// Replaces: mvsformer_tpu/ops/pallas/warp_corr.py plane_sweep_group_corr_v4_mv
-// (and, at V = 1, plane_sweep_group_corr_v4). The contract is the exact,
-// unclipped maths of geometry.homo_warp -> correlation.groupwise_correlation
-// -> correlation.entropy_over_depth (grid_sample zero padding, align-corners
-// coordinates); the plain version is ops/warp_corr.py warp_group_corr_plain.
-// The TPU kernel's band windows and its extra zeroing of frustum-OOB pixels
-// are not part of it.
+// K1 replaces: mvsformer_tpu/ops/pallas/warp_corr.py
+// plane_sweep_group_corr_v4_mv (and, at V = 1, plane_sweep_group_corr_v4).
+// The contract is the exact, unclipped maths of geometry.homo_warp ->
+// correlation.groupwise_correlation -> correlation.entropy_over_depth
+// (grid_sample zero padding, align-corners coordinates); the plain version is
+// ops/warp_corr.py warp_group_corr_plain. The TPU kernel's band windows and
+// its extra zeroing of frustum-OOB pixels are not part of it.
+//
+// K7 replaces: warp_corr.py plane_sweep_group_corr_v3, the training forward
+// (and v1/v2, the same contract with wider bands). It is the same kernel
+// body with the entropy compiled out; the plain version is
+// warp_corr_fwd_plain.
+// The training entropy stays in torch ops on the correlation, where autograd
+// sees it. Without the entropy's shared-memory column, D is not bounded.
 //
 // Bound on the H100: memory. The correlation volume written is V*G*D*H*W
 // floats (about 0.9 GB at stage 4 of the DTU eval shape), against ~10*C
@@ -36,17 +43,17 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxD = 32;
 
-template <int C, int G>
+template <int C, int G, bool kEntropy>
 __global__ void __launch_bounds__(kThreads)
 warp_group_corr_kernel(const float* __restrict__ ref,  // [B, H, W, C]
                        const float* __restrict__ src,  // [B, V, H, W, C]
                        const float* __restrict__ mat,  // [B, V, 12]
                        const float* __restrict__ dv,   // [B, D, H, W]
                        float* __restrict__ corr,       // [B, V, G, D, H, W]
-                       float* __restrict__ ent,        // [B, V, H, W]
+                       float* __restrict__ ent,        // [B, V, H, W] (K1)
                        int V, int D, int H, int W) {
   constexpr int CG = C / G;
-  __shared__ float s_sim[kMaxD * kThreads];
+  __shared__ float s_sim[kEntropy ? kMaxD * kThreads : 1];
 
   const int HW = H * W;
   const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -142,8 +149,9 @@ warp_group_corr_kernel(const float* __restrict__ ref,  // [B, H, W, C]
       corrp[((size_t)g * D + d) * HW] = cg;
       sim += cg;
     }
-    s_sim[d * kThreads + threadIdx.x] = sim;
+    if (kEntropy) s_sim[d * kThreads + threadIdx.x] = sim;
   }
+  if (!kEntropy) return;
 
   // Entropy over D of softmax(sim): the same two-pass formula as the plain
   // version. Each thread reads back only its own column of s_sim.
@@ -159,31 +167,46 @@ warp_group_corr_kernel(const float* __restrict__ ref,  // [B, H, W, C]
   ent[(size_t)bv * HW + p] = -h;
 }
 
-template <int C>
+template <int C, bool kEntropy>
 void launch(const float* ref, const float* src, const float* mat, const float* dv,
             float* corr, float* ent, int B, int V, int D, int H, int W,
             cudaStream_t stream) {
   const dim3 grid((H * W + kThreads - 1) / kThreads, V, B);
-  warp_group_corr_kernel<C, 8><<<grid, kThreads, 0, stream>>>(
+  warp_group_corr_kernel<C, 8, kEntropy><<<grid, kThreads, 0, stream>>>(
       ref, src, mat, dv, corr, ent, V, D, H, W);
 }
 
-}  // namespace
-
-extern "C" int warp_group_corr_f32(const float* ref, const float* src, const float* mat,
-                                   const float* dv, float* corr, float* ent, int B, int V,
-                                   int D, int H, int W, int C, int G, void* stream) {
-  if (D < 1 || D > kMaxD || G != 8 || B < 1 || B > 65535 || V < 1 || V > 65535 ||
-      H < 1 || W < 1) {
+template <bool kEntropy>
+int dispatch(const float* ref, const float* src, const float* mat, const float* dv,
+             float* corr, float* ent, int B, int V, int D, int H, int W, int C, int G,
+             void* stream) {
+  if (D < 1 || (kEntropy && D > kMaxD) || G != 8 || B < 1 || B > 65535 || V < 1 ||
+      V > 65535 || H < 1 || W < 1) {
     return -1;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 8: launch<8>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
-    case 16: launch<16>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
-    case 32: launch<32>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
-    case 64: launch<64>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
+    case 8: launch<8, kEntropy>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
+    case 16: launch<16, kEntropy>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
+    case 32: launch<32, kEntropy>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
+    case 64: launch<64, kEntropy>(ref, src, mat, dv, corr, ent, B, V, D, H, W, s); break;
     default: return -1;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1: corr and entropy.
+extern "C" int warp_group_corr_f32(const float* ref, const float* src, const float* mat,
+                                   const float* dv, float* corr, float* ent, int B, int V,
+                                   int D, int H, int W, int C, int G, void* stream) {
+  return dispatch<true>(ref, src, mat, dv, corr, ent, B, V, D, H, W, C, G, stream);
+}
+
+// K7: corr only.
+extern "C" int warp_corr_fwd_f32(const float* ref, const float* src, const float* mat,
+                                 const float* dv, float* corr, int B, int V, int D, int H,
+                                 int W, int C, int G, void* stream) {
+  return dispatch<false>(ref, src, mat, dv, corr, nullptr, B, V, D, H, W, C, G, stream);
 }

@@ -33,7 +33,13 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
 
     y = x * (weight * rsqrt(var + eps)) + (bias - mean * weight * rsqrt(...)),
     folded in fp32 on the [C] vectors, as the JAX package's eval BN does.
-    Training mode is torch's own batch norm (momentum 0.1 matches flax 0.9).
+
+    Training mode normalises with the batch statistics and updates the
+    running statistics as flax `nn.BatchNorm` does: running = 0.9 * running
+    + 0.1 * batch (torch momentum 0.1), with the *biased* batch variance.
+    torch's batch norm updates the running statistics in its own pass over
+    the batch but puts the unbiased variance, n/(n-1) times larger, into
+    `running_var`; the batch's share of it is scaled back on the [C] vector.
     """
 
     def _check_input_dim(self, input):
@@ -48,7 +54,18 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x):
         if self.training:
-            return super().forward(x)
+            # Copies go into the op: autograd keeps its inputs, and the
+            # buffers change again below and at the next call.
+            mean, var = self.running_mean.clone(), self.running_var.clone()
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum,
+                             self.eps)
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                kept = self.running_var * (1.0 - self.momentum)
+                self.running_mean.copy_(mean)
+                self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+                self.num_batches_tracked.add_(1)
+            return y
         mul, add = self.folded()
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)

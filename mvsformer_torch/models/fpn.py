@@ -7,6 +7,11 @@ top-down levels is K5 `fpn_level`. Levels 1 and 2 hand their intra' map to
 the next level; the final level does not emit it, so on the card the
 full-resolution 64-channel intra' never exists. On the CPU both run their
 plain versions, which are the same convolutions and resizes.
+
+K4 and K5 take folded (running-stat) BN and have no backward, so they run
+in eval only, as the JAX package gates its kernels on `not training`. In
+training the head and the levels run as the modules themselves: convs,
+batch-statistics BN, the align-corners 2x resize and the 1x1 inner convs.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch.nn as nn
 from mvsformer_torch.models.blocks import ConvNormAct, ConvNormSeq, Swish
 from mvsformer_torch.ops.encoder_head import encoder_head
 from mvsformer_torch.ops.fpn_level import fpn_level
+from mvsformer_torch.ops.resize import resize_bilinear
 
 
 class FPNEncoder(nn.Module):
@@ -35,10 +41,14 @@ class FPNEncoder(nn.Module):
         self.conv31 = ConvNormAct(ch[3], ch[3])
 
     def forward(self, x):
-        conv01, down0 = encoder_head(
-            x, self.conv00.conv.weight, self.conv00.bn.folded(),
-            self.conv01.conv.weight, self.conv01.bn.folded(),
-            self.downsample1.conv.weight, self.downsample1.bn.folded())
+        if self.training:
+            conv01 = self.conv01(self.conv00(x))
+            down0 = self.downsample1(conv01)
+        else:
+            conv01, down0 = encoder_head(
+                x, self.conv00.conv.weight, self.conv00.bn.folded(),
+                self.conv01.conv.weight, self.conv01.bn.folded(),
+                self.downsample1.conv.weight, self.downsample1.bn.folded())
         conv11 = self.conv11(self.conv10(down0))
         conv21 = self.conv21(self.conv20(self.downsample2(conv11)))
         conv31 = self.conv31(self.conv30(self.downsample3(conv21)))
@@ -62,6 +72,10 @@ class FPNDecoder(nn.Module):
 
     def _level(self, i, intra, lateral, emit_intra):
         inner, out = getattr(self, f"inner{i}"), getattr(self, f"out{i}")
+        if self.training:
+            h, w = intra.shape[-2:]
+            intra = resize_bilinear(intra, (2 * h, 2 * w), align_corners=True) + inner(lateral)
+            return (out(intra), intra) if emit_intra else out(intra)
         return fpn_level(intra, lateral, inner.weight, inner.bias, out[0].weight,
                          out[0].bias, out[1].folded(), emit_intra=emit_intra)
 

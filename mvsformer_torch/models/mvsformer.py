@@ -1,4 +1,4 @@
-"""TwinMVSNet (MVSFormer) eval forward and its factory.
+"""TwinMVSNet (MVSFormer), its eval and training forwards, and its factory.
 
 Port of `mvsformer_tpu/models/mvsformer.py`: FPN encoder + Twins backbone
 fused by TwinDecoderStage4, then a 4-stage coarse-to-fine cascade of
@@ -6,6 +6,12 @@ StageNets with inverse-depth (or metric) hypothesis scheduling and a
 stage-averaged confidence. Inputs keep the JAX layout: images
 [B, V, H, W, 3], projections {stageK: [B, V, 2, 4, 4]}, depth_values
 [B, Dfull]. Inside, maps are NCHW.
+
+The forward follows `self.training`, as the JAX model follows its
+`training` argument: batch-statistics BN, stochastic depth in the backbone
+(drawn from the caller's generator), and each stage's training warp and
+decode. With `cfg.fix` the backbone runs without gradient and without drop
+path, as the JAX model stops its gradient.
 """
 
 from __future__ import annotations
@@ -34,35 +40,44 @@ class TwinMVSNet(nn.Module):
         feat_chs = tuple(cfg.feat_chs)
         self.encoder = FPNEncoder(feat_chs)
         self.decoder = FPNDecoder(feat_chs)
-        self.vit = build_twins(cfg.vit_args.vit_arch)
+        self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
         self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
                                              cfg.vit_args.out_ch)
         self.fusions = nn.ModuleList(
             StageNet(nd, cfg.base_ch, cfg.model_th) for nd in cfg.ndepths)
 
-    def extract_features(self, imgs):
+    def extract_features(self, imgs, generator=None):
         """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1)."""
         conv01, conv11, conv21, conv31 = self.encoder(imgs)
         vit_h = int(imgs.shape[2] * self.cfg.vit_args.rescale)
         vit_w = int(imgs.shape[3] * self.cfg.vit_args.rescale)
-        vit_feats = self.vit(resize_bicubic(imgs.float(), (vit_h, vit_w)))
+        vit_imgs = resize_bicubic(imgs.float(), (vit_h, vit_w)).to(imgs.dtype)
+        if self.training and self.cfg.fix:
+            with torch.no_grad():
+                vit_feats = self.vit(vit_imgs, deterministic=True)
+        else:
+            vit_feats = self.vit(vit_imgs, generator=generator)
         conv31 = conv31 + self.decoder_vit(*vit_feats)
         return self.decoder(conv01, conv11, conv21, conv31)
 
-    def forward(self, imgs, proj_matrices, depth_values, tmp=2.0):
+    def forward(self, imgs, proj_matrices, depth_values, tmp=2.0, generator=None):
         """imgs [B, V, H, W, 3]; proj_matrices {stageK: [B, V, 2, 4, 4]};
-        depth_values [B, Dfull]; tmp: float or per-stage list.
+        depth_values [B, Dfull]; tmp: float or per-stage list (eval);
+        generator: the torch.Generator that drop path draws from in training
+        (on the model's device; None takes the default one).
 
         The model is fp32, so its convolutions and matmuls run in full fp32:
-        TF32 is off for the forward and the caller's setting is restored."""
+        TF32 is off for the forward and the caller's setting is restored.
+        A training step also runs its backward under `fp32_math`."""
         with fp32_math():
-            return self._forward(imgs, proj_matrices, depth_values, tmp)
+            return self._forward(imgs, proj_matrices, depth_values, tmp, generator)
 
-    def _forward(self, imgs, proj_matrices, depth_values, tmp):
+    def _forward(self, imgs, proj_matrices, depth_values, tmp, generator=None):
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
         flat = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
-        features = [f.reshape(B, V, *f.shape[1:]) for f in self.extract_features(flat)]
+        features = [f.reshape(B, V, *f.shape[1:])
+                    for f in self.extract_features(flat, generator)]
 
         outputs = {}
         prev = None
@@ -96,10 +111,11 @@ class TwinMVSNet(nn.Module):
         return outputs
 
 
-def build_model(cfg: ModelConfig, device=None) -> TwinMVSNet:
-    """The eval-mode model on `device` (`cuda` unless the caller asks for the
-    CPU; raises if CUDA is asked for and absent). Raises NotImplementedError
-    for parts of the configuration that later slices port."""
+def build_model(cfg: ModelConfig, device=None, train: bool = False) -> TwinMVSNet:
+    """The model on `device` (`cuda` unless the caller asks for the CPU;
+    raises if CUDA is asked for and absent), in eval mode, or in training
+    mode with `train=True`. Raises NotImplementedError for parts of the
+    configuration that later slices port."""
     dev = resolve_device(device)
     unsupported = {
         "model_type": cfg.model_type != "twin",
@@ -113,7 +129,7 @@ def build_model(cfg: ModelConfig, device=None) -> TwinMVSNet:
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
-    return TwinMVSNet(cfg).to(dev).eval()
+    return TwinMVSNet(cfg).to(dev).train(train)
 
 
 @torch.no_grad()

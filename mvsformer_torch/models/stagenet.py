@@ -1,11 +1,20 @@
-"""One cascade stage, eval forward: plane-sweep cost volume, visibility-weighted
-view fusion, 3D regularisation and depth decode.
+"""One cascade stage: plane-sweep cost volume, visibility-weighted view
+fusion, 3D regularisation and depth decode.
 
-Port of `mvsformer_tpu/models/stagenet.py` for `fusion_type="cnn"`. Per
-stage, one K1 launch covers every source view (warp, correlation and
-entropy), one K2 launch runs the visibility CNN over all B*Vs entropy maps,
-and one K3 launch decodes the depth. The epipole fusions, the training
-forward and the similarity diagnostic come with later slices.
+Port of `mvsformer_tpu/models/stagenet.py` for `fusion_type="cnn"`.
+
+Eval: per stage, one K1 launch covers every source view (warp, correlation
+and entropy), one K2 launch runs the visibility CNN over all B*Vs entropy
+maps, and one K3 launch decodes the depth.
+
+Training, as the JAX training forward runs it: one K7 launch for the
+correlation of every view and K8 for its backward (`WarpCorrTrain`); the
+entropy in torch ops on the correlation; the visibility CNN as its modules
+with batch-statistics BN, once per view as the JAX view loop calls it (so
+its running statistics take one update per view); then the softmax and the
+argmax decode. K1-K3 take folded BN or have no backward and run in eval
+only. The epipole fusions and the similarity diagnostic come with later
+slices.
 """
 
 from __future__ import annotations
@@ -15,10 +24,12 @@ import torch.nn as nn
 
 from mvsformer_torch.models.blocks import ConvBnReLU
 from mvsformer_torch.models.costreg import CostRegNet, CostRegNet3D
-from mvsformer_torch.ops import geometry
+from mvsformer_torch.ops import geometry, regression
+from mvsformer_torch.ops.correlation import entropy_over_depth
 from mvsformer_torch.ops.stage_tail import depth_decode
 from mvsformer_torch.ops.vis_net import visibility_net
 from mvsformer_torch.ops.warp_corr import warp_group_corr
+from mvsformer_torch.ops.warp_corr_train import WarpCorrTrain
 
 
 class VisibilityNet(nn.Sequential):
@@ -29,7 +40,13 @@ class VisibilityNet(nn.Sequential):
                          nn.Conv2d(8, 1, 1))
 
     def forward(self, ent):
-        """ent [N, H, W] -> weight [N, H, W] (eval BN, through K2)."""
+        """ent [N, H, W] -> weight [N, H, W]: K2 with folded BN in eval, the
+        layers with batch-statistics BN in training."""
+        if self.training:
+            x = ent[:, None].to(self[3].weight.dtype)
+            for i in range(3):
+                x = self[i](x)
+            return torch.sigmoid(self[3](x).float())[:, 0]
         folds = [self[i].bn.folded() for i in range(3)]
         return visibility_net(ent, self[0].conv.weight, self[1].conv.weight,
                               self[2].conv.weight, self[3].weight, self[3].bias, folds)
@@ -55,11 +72,16 @@ class StageNet(nn.Module):
         dv = depth_values.float().contiguous()
         ref_full = geometry.compose_projection(ref_proj.float())
         src_full = geometry.compose_projection(src_projs.float())
-        # K1 reads channels-last features: each bilinear tap is one C-vector.
+        # K1 and K7 read channels-last features: each bilinear tap is one C-vector.
         ref_cl = ref_feat.float().permute(0, 2, 3, 1).contiguous()
         src_cl = src_feats.float().permute(0, 1, 3, 4, 2).contiguous()
-        corr, ent = warp_group_corr(ref_cl, src_cl, src_full, ref_full, dv, groups=G)
-        w = self.vis(ent.reshape(B * Vs, H, W)).reshape(B, Vs, H, W)
+        if self.training:
+            corr = WarpCorrTrain.apply(ref_cl, src_cl, src_full, ref_full, dv, G)
+            w = torch.stack([self.vis(entropy_over_depth(corr[:, v].permute(0, 2, 3, 4, 1))[..., 0])
+                             for v in range(Vs)], 1)
+        else:
+            corr, ent = warp_group_corr(ref_cl, src_cl, src_full, ref_full, dv, groups=G)
+            w = self.vis(ent.reshape(B * Vs, H, W)).reshape(B, Vs, H, W)
 
         # Weighted view mean, accumulated view by view in the reference's order.
         volume_sum = corr[:, 0] * w[:, 0, None, None]
@@ -69,8 +91,11 @@ class StageNet(nn.Module):
         vis_sum = w.sum(dim=1)[:, None, None]  # [B, 1, 1, H, W]
         volume_mean = volume_sum / (vis_sum + 1e-6)
 
-        logits = self.cost_reg(volume_mean)[:, 0].float().contiguous()  # [B, D, H, W]
-        # The ce/was eval decode; build_model rejects the other depth types.
-        depth, conf = depth_decode(logits, dv, tmp)
+        logits = self.cost_reg(volume_mean.to(ref_feat.dtype))[:, 0].float().contiguous()
+        # The ce/was decodes; build_model rejects the other depth types.
+        if self.training:
+            depth, conf = regression.decode_depth(logits, dv, "ce", tmp, training=True)
+        else:
+            depth, conf = depth_decode(logits, dv, tmp)
         return {"depth": depth, "photometric_confidence": conf,
                 "prob_volume_pre": logits, "depth_values": dv}

@@ -36,7 +36,9 @@ _F = ctypes.c_float
 # Exported C functions and their argument types. Every function returns the
 # launch's cudaError_t as an int (0 = success, -1 = shape not supported).
 SIGNATURES = {
-    "warp_corr": {"warp_group_corr_f32": [_P] * 6 + [_I] * 7 + [_P]},
+    "warp_corr": {"warp_group_corr_f32": [_P] * 6 + [_I] * 7 + [_P],
+                  "warp_corr_fwd_f32": [_P] * 5 + [_I] * 7 + [_P]},
+    "warp_corr_bwd": {"warp_corr_bwd_f32": [_P] * 7 + [_I] * 7 + [_P]},
     "vis_net": {"visibility_net_f32": [_P] * 3 + [_I] * 3 + [_P]},
     "encoder_head": {"encoder_head_f32": [_P] * 4 + [_I] * 3 + [_P]},
     "fpn_level": {"fpn_level_f32": [_P] * 5 + [_I] * 5 + [_P]},

@@ -1,0 +1,73 @@
+"""AdamW with the Twins backbone/cascade LR split and the warmup-cosine
+schedule.
+
+Port of `mvsformer_tpu/train/optim.py` for `model_type="twin"`. The optax
+chain there (clip, Adam, decoupled weight decay, learning rate, per-leaf LR
+scale, frozen mask) is torch's AdamW over three parameter groups:
+
+- `vit.*` tensors of ndim > 1 outside `pos_embed` / `cls_token`: the
+  backbone's LR (`vit_lr`) and weight decay;
+- the backbone's other tensors: its LR, no decay;
+- everything else: `lr`, no decay.
+
+optax adds `weight_decay * p` to the Adam direction before the LR scales
+both, so the decay runs at the group's LR, which is what AdamW does. The
+schedule is a `LambdaLR` that multiplies every group's base LR by the same
+warmup-cosine factor; step k of the optimizer uses factor(k), as optax's
+count does. With `fix` the backbone's tensors are left out of the optimizer
+(and take no gradient). Layer decay for DINO comes with that model.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def warmup_cosine_factor(step: int, warmup_steps: int, total_steps: int,
+                         min_lr_frac: float) -> float:
+    """LR multiplier at `step`: linear 0 -> 1 over the warmup, then a cosine
+    from 1 to `min_lr_frac` at `total_steps`."""
+    if step < warmup_steps:
+        return step / max(1, warmup_steps)
+    prog = (step - warmup_steps) / max(1, total_steps - warmup_steps)
+    return min_lr_frac + (1.0 - min_lr_frac) * 0.5 * (1.0 + math.cos(math.pi * prog))
+
+
+def decays(name: str, param: torch.Tensor) -> bool:
+    """Whether weight decay applies (optim.py weight_decay_mask)."""
+    return (name.startswith("vit.") and param.dim() > 1
+            and "pos_embed" not in name and "cls_token" not in name)
+
+
+def param_groups(model: torch.nn.Module, opt_cfg, fix: bool = False) -> list[dict]:
+    """The three AdamW groups, each with its names for reference."""
+    groups = {"vit_decay": [], "vit_no_decay": [], "rest": []}
+    for name, p in model.named_parameters():
+        if name.startswith("vit."):
+            if fix:
+                continue
+            groups["vit_decay" if decays(name, p) else "vit_no_decay"].append((name, p))
+        else:
+            groups["rest"].append((name, p))
+    vit_lr, wd = opt_cfg.vit_lr, opt_cfg.weight_decay
+    settings = {"vit_decay": (vit_lr, wd), "vit_no_decay": (vit_lr, 0.0),
+                "rest": (opt_cfg.lr, 0.0)}
+    return [{"params": [p for _, p in items], "names": [n for n, _ in items],
+             "lr": settings[key][0], "weight_decay": settings[key][1], "group": key}
+            for key, items in groups.items() if items]
+
+
+def build_optimizer(model: torch.nn.Module, opt_cfg, total_steps: int, fix: bool = False):
+    """-> (AdamW, LambdaLR). With `fix` the backbone's parameters stop
+    requiring gradients and are not in the optimizer."""
+    if fix:
+        for p in model.vit.parameters():
+            p.requires_grad_(False)
+    optimizer = torch.optim.AdamW(param_groups(model, opt_cfg, fix), betas=(0.9, 0.999),
+                                  eps=1e-8)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: warmup_cosine_factor(step, opt_cfg.warmup_steps, total_steps,
+                                                     opt_cfg.min_lr))
+    return optimizer, scheduler

@@ -148,7 +148,8 @@ def vis_state(params, stats, prefix="") -> dict:
 
 
 def to_torch(sd: dict) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(np.asarray(v))) for k, v in sd.items()}
+    """Copies, so read-only arrays (a JAX array's numpy view) are taken too."""
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def convert_flax_twin(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
@@ -174,3 +175,19 @@ def load_flax_twin(model, params, batch_stats) -> None:
     sd = convert_flax_twin(params, batch_stats, tuple(cfg.ndepths), cfg.model_th,
                            tuple(len(b) for b in model.vit.blocks))
     model.load_state_dict(sd, strict=True)
+
+
+BUFFER_SUFFIXES = (".running_mean", ".running_var", ".num_batches_tracked")
+
+
+def convert_flax_grads(grads, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
+                       vit_depths=(2, 2, 10, 4)) -> tuple[dict, dict]:
+    """A JAX gradient tree (the shape of `params`) and its `batch_stats` ->
+    ({parameter name: gradient}, {buffer name: running statistic}) in the
+    port's names. Every layout change of the bridge is a transpose or a flip,
+    which is linear, so a gradient maps exactly as its weight does."""
+    sd = convert_flax_twin(grads, batch_stats, ndepths, model_th, vit_depths)
+    params = {k: v for k, v in sd.items() if not k.endswith(BUFFER_SUFFIXES)}
+    buffers = {k: v for k, v in sd.items()
+               if k.endswith(BUFFER_SUFFIXES) and not k.endswith(".num_batches_tracked")}
+    return params, buffers

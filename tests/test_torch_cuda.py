@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from mvsformer_torch.ops import cuda_build
+from mvsformer_torch.ops import cuda_build, geometry
 from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
 from mvsformer_torch.ops.fpn_level import LEVELS, fpn_level, fpn_level_plain
 from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 from mvsformer_torch.ops.stage_tail import depth_decode, depth_decode_plain
 from mvsformer_torch.ops.vis_net import visibility_net, visibility_net_plain
-from mvsformer_torch.ops.warp_corr import warp_group_corr, warp_group_corr_plain
+from mvsformer_torch.ops.warp_corr import (warp_corr_fwd, warp_corr_fwd_plain, warp_group_corr,
+                                           warp_group_corr_plain)
+from mvsformer_torch.ops.warp_corr_train import (WarpCorrTrain, warp_corr_bwd,
+                                                 warp_corr_bwd_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +198,109 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
         gsa_attention(q, q, q, 4)
     with pytest.raises(TypeError):  # float64 is not taken
         gsa_attention(q.double(), q.double(), q.double(), 2)
+
+
+def warp_inputs(dev, rng, B, V, H, W, C, D):
+    src_p, ref_p = cams(rng, B, V, H, W)
+    dv = np.sort(rng.uniform(425, 900, (B, D, H, W)).astype(np.float32), axis=1)
+    return [torch.from_numpy(a).to(dev) for a in (
+        rng.standard_normal((B, H, W, C)).astype(np.float32),
+        rng.standard_normal((B, V, H, W, C)).astype(np.float32), src_p, ref_p, dv)]
+
+
+# H, W not multiples of the 128-pixel block or of 8; V = 1; C = 8 and 64;
+# D = 4 and 32, and 48 (K7 has no bound on D, K1 stops at 32).
+WARP_SHAPES = [(1, 4, 36, 48, 64, 32), (2, 1, 37, 45, 8, 4), (1, 2, 19, 23, 16, 8),
+               (1, 3, 17, 29, 64, 4), (1, 1, 13, 11, 32, 48)]
+
+
+@pytest.mark.parametrize("B,V,H,W,C,D", WARP_SHAPES)
+def test_warp_corr_fwd_matches_plain(dev, B, V, H, W, C, D):
+    rng = np.random.default_rng(7)
+    args = warp_inputs(dev, rng, B, V, H, W, C, D)
+    before = cuda_build.LAUNCHES["warp_corr_fwd"]
+    corr = warp_corr_fwd(*args, groups=8)
+    assert cuda_build.LAUNCHES["warp_corr_fwd"] == before + 1
+    want_corr = warp_corr_fwd_plain(*args, groups=8)
+    # Same products summed in another order, on coordinates rounded as the
+    # plain version rounds them.
+    torch.testing.assert_close(corr, want_corr, rtol=1e-4, atol=1e-4)
+    # Part of the warp falls outside the source frustum, where the taps are
+    # zero-padded.
+    _, _, src_p, ref_p, dv = args
+    invalid = geometry.plane_sweep_coords(src_p[:, 0], ref_p, dv, H, W)[2]
+    assert 0 < invalid.float().mean() < 1
+
+
+@pytest.mark.parametrize("B,V,H,W,C,D", WARP_SHAPES)
+def test_warp_corr_bwd_matches_plain(dev, B, V, H, W, C, D):
+    rng = np.random.default_rng(8)
+    args = warp_inputs(dev, rng, B, V, H, W, C, D)
+    dcorr = torch.from_numpy(rng.standard_normal((B, V, 8, D, H, W)).astype(np.float32)).to(dev)
+    before = cuda_build.LAUNCHES["warp_corr_bwd"]
+    dref, dsrc = warp_corr_bwd(*args, dcorr, groups=8)
+    assert cuda_build.LAUNCHES["warp_corr_bwd"] == before + 1
+    want_dref, want_dsrc = warp_corr_bwd_plain(*args, dcorr, groups=8)
+    # fp32 atomics: the order of every sum varies from run to run, so the
+    # bound is relative to each output's scale, not bit for bit.
+    for got, want in ((dref, want_dref), (dsrc, want_dsrc)):
+        scale = max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float(dsrc.abs().max()) > 0
+
+
+def test_warp_corr_train_gradcheck(dev):
+    """Finite differences through K7 against K8. The correlation is linear
+    in ref for a fixed src and in src for a fixed ref, so fp32 central
+    differences are exact up to rounding. K8's atomics sum in an order that
+    varies from run to run, so two backward passes may differ in their last
+    bits (values of order 1 here): gradcheck's reentrancy check gets that
+    much room."""
+    rng = np.random.default_rng(9)
+    ref, src, sp, rp, dv = warp_inputs(dev, rng, 1, 2, 5, 7, 8, 3)
+    assert torch.autograd.gradcheck(
+        lambda r, s: WarpCorrTrain.apply(r, s, sp, rp, dv, 8),
+        (ref.requires_grad_(), src.requires_grad_()), eps=1e-2, atol=2e-3, rtol=1e-3,
+        nondet_tol=1e-5, fast_mode=True)
+
+
+def test_warp_corr_train_is_the_adjoint_of_k7(dev):
+    """<dcorr, K7(u, src)> = <u, dref> and <dcorr, K7(ref, u)> = <u, dsrc>
+    at a stage-sized shape: the backward is the exact adjoint of the
+    forward (tests/test_pallas_warp.py's dot-product test)."""
+    rng = np.random.default_rng(10)
+    ref, src, sp, rp, dv = warp_inputs(dev, rng, 2, 3, 40, 52, 32, 8)
+    u_ref, u_src = torch.randn_like(ref), torch.randn_like(src)
+    ref.requires_grad_()
+    src.requires_grad_()
+    corr = WarpCorrTrain.apply(ref, src, sp, rp, dv, 8)
+    dcorr = torch.randn_like(corr)
+    corr.backward(dcorr)
+    with torch.no_grad():
+        lhs_r = float((dcorr.double() * warp_corr_fwd(u_ref, src, sp, rp, dv).double()).sum())
+        lhs_s = float((dcorr.double() * warp_corr_fwd(ref, u_src, sp, rp, dv).double()).sum())
+    rhs_r = float((u_ref.double() * ref.grad.double()).sum())
+    rhs_s = float((u_src.double() * src.grad.double()).sum())
+    assert abs(lhs_r - rhs_r) <= 1e-4 * max(1.0, abs(lhs_r))
+    assert abs(lhs_s - rhs_s) <= 1e-4 * max(1.0, abs(lhs_s))
+
+
+def test_training_warp_raises_instead_of_falling_back(dev):
+    rng = np.random.default_rng(11)
+    ref, src, sp, rp, dv = warp_inputs(dev, rng, 1, 2, 8, 8, 8, 4)
+    dcorr = torch.zeros((1, 2, 8, 4, 8, 8), device=dev)
+    with pytest.raises(ValueError):  # a CPU projection among CUDA tensors
+        warp_corr_fwd(ref, src, sp.cpu(), rp, dv)
+    with pytest.raises(TypeError):  # float64 is not taken
+        warp_corr_fwd(ref.double(), src.double(), sp, rp, dv.double())
+    with pytest.raises(ValueError):  # C = 12 has no kernel
+        warp_corr_fwd(ref[..., :6].repeat(1, 1, 1, 2).contiguous(),
+                      src[..., :6].repeat(1, 1, 1, 1, 2).contiguous(), sp, rp, dv)
+    with pytest.raises(ValueError):  # groups must be 8
+        warp_corr_fwd(ref, src, sp, rp, dv, groups=4)
+    with pytest.raises(ValueError):  # dcorr of the wrong shape
+        warp_corr_bwd(ref, src, sp, rp, dv, dcorr[:, :1])
+    with pytest.raises(TypeError):  # float64 cotangent
+        warp_corr_bwd(ref, src, sp, rp, dv, dcorr.double())
+    with pytest.raises(ValueError):  # a CPU cotangent
+        warp_corr_bwd(ref, src, sp, rp, dv, dcorr.cpu())
