@@ -7,7 +7,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build every CUDA kernel from `mvsformer_torch/csrc/` (one nvcc per
-   source, all at once) and print the build time.
+   source, all at once) and print the build time, and K5's resident blocks
+   per SM at each level (its design needs two).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -63,7 +64,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
-the tensor cores), the published H100 SXM peaks.
+the tensor cores), the published H100 SXM peaks. K5 runs its 3x3 conv on
+the tensor cores in 3xTF32 (three TF32 products per multiply-add, which
+keeps fp32's accuracy), so its bound has a third term: 3 x 2 x the conv's
+multiply-adds over 494.7 TFLOP/s (dense TF32), with its other operations
+over 67 TFLOP/s; its lines name the term that binds ("bytes", "tensor" or
+"operations") and the kernel's share of the bound.
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 494.7e12
+TF32_PRODUCTS = 3  # 3xTF32: lo*hi + hi*lo + hi*hi per multiply-add
 N_REQUESTS = 3
 B, V, H, W, NDEPTH_FULL = 1, 5, 1152, 1536, 192
 DEPTH_MIN, DEPTH_MAX = 425.0, 900.0
@@ -242,9 +250,10 @@ def k5_cost(args, kwargs):
     emit = kwargs.get("emit_intra", False)
     nbytes = 4 * (prev.numel() + lat.numel() + n * co * hw + (n * 64 * hw if emit else 0)
                   + 64 * (cl + 1) + co * (576 + 3))
-    # per pixel: 1x1 and 3x3 multiply-adds, ~10 ops per channel for the
-    # align-corners lerp and the bias, ~8 per output for bias, BN and swish.
-    return nbytes, n * hw * (2 * 64 * (cl + 9 * co) + 64 * 10 + co * 8)
+    # Outside the tensor cores, per pixel: the 1x1 multiply-adds, ~10 ops
+    # per channel for the align-corners lerp and the bias, ~8 per output for
+    # bias, BN and swish. On them: the 3x3 conv's multiply-adds.
+    return nbytes, n * hw * (2 * 64 * cl + 64 * 10 + co * 8), n * hw * 576 * co
 
 
 def k6_cost(args, kwargs):
@@ -279,10 +288,14 @@ def k8_cost(args, kwargs):
     return nbytes, b * v * d * hw * (30 + 8 * c + 2 * c + c + 8 * c + g)
 
 
-def bound_ms(nbytes, flops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def bound_ms(nbytes, flops, tensor_macs=0):
+    """(least ms, the term that binds): bytes over the memory rate, fp32
+    operations over the CUDA cores' rate and, for a kernel on the tensor
+    cores (K5), its 3xTF32 products over the dense TF32 rate."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOPS_PER_S,
+             "tensor": TF32_PRODUCTS * 2 * tensor_macs / TF32_FLOPS_PER_S}
+    by = max(times, key=times.get)  # ties go to bytes, then operations
+    return times[by] * 1e3, by
 
 
 def layer_breakdown(torch, model, fn, request):
@@ -459,30 +472,32 @@ def check_kernel(torch, card, name, spec, label, args, kwargs):
             lib, to_plain = spec["library"](torch, args)
             lib_ms = time_ms(torch, lib)
             detail += f"; library call max_abs_err {max_err(to_plain(lib()), want):.3e}"
-    nbytes, flops = spec["cost"](args, kwargs)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    nbytes, flops, *tensor = spec["cost"](args, kwargs)
+    tensor_macs = tensor[0] if tensor else 0
+    b_ms, b_by = bound_ms(nbytes, flops, tensor_macs)
     lib_text = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    share = f", {b_ms / ms:.1%} of it" if tensor else ""
     print(f"{name} {label}: max_abs_err {detail} (tolerance {tol}) "
           f"{'ok' if ok else 'FAILED'}; {ms:.4f} ms, plain {plain_ms:.4f} ms{lib_text}, "
-          f"bound {b_ms:.4f} ms ({b_by}) [{card}]", flush=True)
+          f"bound {b_ms:.4f} ms ({b_by}){share} [{card}]", flush=True)
     if not ok:
         raise RuntimeError(f"{name} {label}: kernel disagrees with its plain version")
     return dict(label=label, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                tensor_macs=tensor_macs)
 
 
 def kernel_row(name, spec, rows, launches):
     """One entry of the kernels JSON line, summed over the checked launches."""
-    t_bytes = sum(r["bytes"] for r in rows) / HBM_BYTES_PER_S
-    t_ops = sum(r["flops"] for r in rows) / FP32_FLOPS_PER_S
+    b_ms, b_by = bound_ms(*(sum(r[k] for r in rows) for k in ("bytes", "flops", "tensor_macs")))
     return {
         "name": name, "route": spec["route"], "source": spec["source"],
         "replaces": spec["replaces"], "launches": launches,
         "max_abs_err": max(r["err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": max(t_bytes, t_ops) * 1e3,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": b_ms,
+        "bound_by": b_by,
         "library_ms": (sum(r["library_ms"] for r in rows) if "library" in spec else None),
     }
 
@@ -849,6 +864,11 @@ def main() -> int:
         for line in rep["ptxas"].splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    occupancy = {f"{cl}/{co}": cuda_build.library("fpn_level").fpn_level_blocks_per_sm(cl, co)
+                 for cl, co in fpn_level.LEVELS}
+    print(f"fpn_level resident blocks per SM, by (cl/co): {occupancy}")
+    if min(occupancy.values()) < 2:
+        raise RuntimeError("fpn_level: fewer than two blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1036,7 +1056,7 @@ def main() -> int:
 
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "build_s": build_s,
+        "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,

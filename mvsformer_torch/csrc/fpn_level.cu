@@ -1,4 +1,4 @@
-// K5: one top-down FPN level in one launch.
+// K5: one top-down FPN level in one launch, the 3x3 conv on the tensor cores.
 //
 // Replaces: mvsformer_tpu/ops/pallas/fpn_final.py fpn_level (and
 // fpn_final_level) and mvsformer_tpu/ops/pallas/fpn_up.py fpn_up_level.
@@ -10,70 +10,134 @@
 // the caller asks for it (the next level reads it). The plain version is
 // ops/fpn_level.py fpn_level_plain.
 //
-// Bound on the H100: operations. Per output pixel 2 * 64 * (CL + 9 * CO)
-// flop in fp32 CUDA cores (5120 at the final level, CL = CO = 8) against
-// 4 * (64 / 4 + CL + CO) bytes (+256 with intra'): the 64-channel intra',
-// up2(intra_prev) and conv1x1(lateral), which the plain version writes at
-// full resolution, never reach device memory unless intra' is asked for.
+// Bound on the H100: the 3x3 conv is 90% of the operations (per output
+// pixel 2 * 576 * CO flop, against 2 * 64 * CL for the 1x1). Run as 3xTF32
+// on the tensor cores (three TF32 products per multiply-add, 494.7 TFLOP/s
+// dense), it bounds levels 1 and 3 (0.124 and 0.495 ms at the DTU request,
+// 5 views); level 2, which also writes the 64-channel intra', is bound by
+// its bytes (0.296 ms). The 64-channel intra', up2(intra_prev) and
+// conv1x1(lateral) never reach device memory unless intra' is asked for.
 //
-// Design: one block per 16 x 16 output tile, for all CO channels.
-//  - Phase 1 computes intra' over the tile with a 1-pixel halo, 64
-//    channels, into dynamic shared memory (64 x 18 x 18 floats, 83 KB);
-//    positions outside the image are exact zeros: the 3x3 conv pads
-//    intra', not intra_prev. The align-corners source coordinate and its
-//    weight are computed as PyTorch's upsample_bilinear2d computes them
-//    (scale = float(h-1) / (2h-1), src = scale * i, truncated), so the
-//    kernel and the plain version interpolate with the same weights.
-//  - Phase 2 runs the 3x3 conv from shared memory. A thread computes 4
-//    neighbouring pixels x 8 output channels over 64 / KS input channels;
-//    with CO < 32 the input channels are split KS = 32 / CO ways so that
-//    all 256 threads work, and the partial sums meet in shared memory.
-//    Weights sit in shared memory as [ci][ky][kx][o]: a tap's 8 channels
-//    are two float4 broadcast loads for 32 FMAs.
+// Design: one block of 8 warps per 16 x 16 output tile, for all CO channels.
+//  - The parameters of the 1x1 conv, the biases and the folded BN (at most
+//    2,208 floats) sit in shared memory. The 3x3 weights do not: the
+//    wrapper splits them into TF32 hi and lo parts and packs both in mma
+//    B-fragment order (ops/fpn_level.py pack_k3), so a lane fetches its
+//    (hi, hi, lo, lo) of one fragment with one 16-byte __ldg; the packed
+//    weights (36.9K floats at CO = 32) stay in L2 and L1 for every block.
+//  - Phase 1 computes intra' over the tile with a 1-pixel halo, 18 x 18
+//    pixels, into shared memory, pixel-major with 64 channels innermost
+//    and a pixel stride of PS = 72 floats. A thread forms a horizontal
+//    pixel pair: with the align-corners scale below 1/2, pixels 2k - 1 and
+//    2k read the same source column, so each tap is loaded once for both
+//    (this halved the gathers; 162 of the 256 threads work). It reads each
+//    pixel's CL lateral values once and forms all 64 channels, as
+//    up + (conv1x1 + b1). Positions outside the image are exact zeros: the
+//    3x3 conv pads intra', not intra_prev. The align-corners source
+//    coordinate and its weight are computed as PyTorch's
+//    upsample_bilinear2d computes them (scale = float(h-1) / (2h-1),
+//    src = scale * i, truncated), so the kernel and the plain version
+//    interpolate with the same weights.
+//  - Phase 2 is the 3x3 conv as an implicit GEMM: M = the tile's 256
+//    pixels, N = CO, K = 64 channels x 9 taps, on
+//    mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32. A warp owns RW output
+//    rows (16-pixel M fragments) and all CO / 8 N fragments: RW = 2, and
+//    4 at CO = 8, where 4 of the 8 warps then do all of it and each B
+//    fragment serves four M fragments. Within a chunk of 8 input channels,
+//    K is ordered so that a lane's two A values (columns t and t + 4) are
+//    channels 2t and 2t + 1: one 8-byte shared load, and PS = 72 (8 mod 32
+//    banks) puts the 16 lanes of each half-warp on distinct banks. A is
+//    split into hi = tf32(x) and lo = tf32(x - hi) as it is loaded, and
+//    each multiply-add is lo*hi + hi*lo + hi*hi (3xTF32): fp32's accuracy,
+//    where one TF32 product keeps about 3 decimal digits. The tensor
+//    cores round each mma's sum toward zero, so each chunk of 72 products
+//    is summed from zero and then added to the fp32 accumulator. Each
+//    intra' row (of the RW + 2 a warp reads) is loaded and split once per
+//    (chunk, kx), for every output row that reads it. There is no split-K.
+//  - Shared memory: 4 * (params + 18 * 18 * 72) bytes = 102,144 B at
+//    (CL, CO) = (32, 32), 97,856 B at (16, 16) and 95,712 B at (8, 8).
+//    With at most 128 registers a thread (__launch_bounds__(256, 2)) two
+//    blocks share an SM at every level (fpn_level_blocks_per_sm reports
+//    what the card makes of it), so one block's phase 1 can run beside the
+//    other's phase 2; both lean on the same shared-memory and L1 path.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int TH = 16, TW = 16;           // output tile
+constexpr int TH = 16, TW = 16;          // output tile; an M fragment is 16 pixels of a row
 constexpr int SH = TH + 2, SW = TW + 2;   // intra' tile (1-pixel halo)
-constexpr int kPlane = SH * SW;
+constexpr int kPix = SH * SW;
+constexpr int PS = 72;                    // floats per intra' pixel: 64 channels and 8 of padding
+static_assert(TW % 2 == 0, "phase 1's pixel pairs (2k - 1, 2k) start at odd image columns");
 
 template <int CL, int CO>
 struct Level {
-  // Packed parameter layout (floats), built by the Python wrapper.
+  // Parameter layout in shared memory (floats), built by the Python wrapper.
   static constexpr int W1 = 0;              // [64][CL]
   static constexpr int B1 = W1 + 64 * CL;   // [64]
-  static constexpr int K3 = B1 + 64;        // [64][3][3][CO]
-  static constexpr int B3 = K3 + 576 * CO;  // [CO]
+  static constexpr int B3 = B1 + 64;        // [CO]
   static constexpr int MU = B3 + CO;        // [CO] folded BN scale
   static constexpr int AD = MU + CO;        // [CO] folded BN shift
   static constexpr int kParams = AD + CO;
-  static constexpr int KS = 32 / CO;        // input-channel split of the 3x3 conv
-  static constexpr size_t kSmemBytes = sizeof(float) * (kParams + 64 * kPlane);
+  static constexpr int NF = CO / 8;         // N fragments
+  static constexpr size_t kSmemBytes = sizeof(float) * (kParams + kPix * PS);
   static_assert(CL % 4 == 0 && CO % 8 == 0 && kParams % 4 == 0, "float4 layout");
-  static_assert((TH * TW / 4) * (CO / 8) * KS == kThreads, "one item per thread");
 };
 
-__device__ __forceinline__ void fma8(float* acc, const float* w, float x) {
-  const float4 w0 = *reinterpret_cast<const float4*>(w);
-  const float4 w1 = *reinterpret_cast<const float4*>(w + 4);
-  acc[0] += w0.x * x; acc[1] += w0.y * x; acc[2] += w0.z * x; acc[3] += w0.w * x;
-  acc[4] += w1.x * x; acc[5] += w1.y * x; acc[6] += w1.z * x; acc[7] += w1.w * x;
+// x = hi + lo with hi = tf32(x), lo = tf32(x - hi), as ops/fpn_level.py
+// split_tf32: cvt.rna leaves the 13 low mantissa bits zero, and x - hi is
+// exact in fp32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
+}
+
+// The A fragment of 8 channels of two 8-pixel groups, split into hi and lo:
+// x0 holds pixel g's channels 2t and 2t + 1 (columns t and t + 4, rows g),
+// x1 pixel g + 8's (rows g + 8).
+__device__ __forceinline__ void load_a(const float* pa, uint32_t* ah, uint32_t* al) {
+  const float2 x0 = *reinterpret_cast<const float2*>(pa);
+  const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * PS);
+  split_tf32(x0.x, ah[0], al[0]);
+  split_tf32(x1.x, ah[1], al[1]);
+  split_tf32(x0.y, ah[2], al[2]);
+  split_tf32(x1.y, ah[3], al[3]);
+}
+
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// One multiply-add step in 3xTF32: the small cross terms, then hi * hi.
+// b holds the lane's B fragment as (hi b0, hi b1, lo b0, lo b1).
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah, const uint32_t* al,
+                                           float4 b) {
+  mma_tf32(d, al, b.x, b.y);
+  mma_tf32(d, ah, b.z, b.w);
+  mma_tf32(d, ah, b.x, b.y);
 }
 
 template <int CL, int CO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 fpn_level_kernel(const float* __restrict__ prev,    // [N, 64, h, w]
                  const float* __restrict__ lat,     // [N, CL, 2h, 2w]
                  const float* __restrict__ params,  // [Level::kParams]
+                 const float4* __restrict__ wpk,    // [8 chunks][9 taps][NF][32 lanes]
                  float* __restrict__ out,           // [N, CO, 2h, 2w]
                  float* __restrict__ intra_out,     // [N, 64, 2h, 2w] or null
                  int h, int w, float rh, float rw) {
   using L = Level<CL, CO>;
+  constexpr int NF = L::NF;
   extern __shared__ __align__(16) float smem[];
   float* sp = smem;
   float* s_i = smem + L::kParams;
@@ -89,120 +153,159 @@ fpn_level_kernel(const float* __restrict__ prev,    // [N, 64, h, w]
     reinterpret_cast<float4*>(sp)[i] = reinterpret_cast<const float4*>(params)[i];
   __syncthreads();
 
-  // Phase 1: intra' over the tile with a 1-pixel halo; item = (pixel,
-  // quarter of the 64 channels).
-  for (int it = tid; it < 4 * kPlane; it += kThreads) {
-    const int q = it / kPlane, rc = it - q * kPlane;
-    const int r = rc / SW, c = rc - r * SW;
-    const int gy = ty0 - 1 + r, gx = tx0 - 1 + c;
-    float* dst = s_i + q * 16 * kPlane + rc;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
+  // Phase 1: intra' over the tile with a 1-pixel halo. A thread forms the
+  // horizontal pixel pair (2k - 1, 2k), which shares its source column
+  // x0 = k - 1 (the align-corners scale is below 1/2), so each of the four
+  // taps is loaded once for both; it reads each pixel's lateral values once.
+  constexpr int kPairs = SH * (SW / 2);
+  for (int i = tid; i < kPairs; i += kThreads) {
+    const int r = i / (SW / 2), c = 2 * (i - r * (SW / 2));
+    const int gy = ty0 - 1 + r, gxa = tx0 - 1 + c, gxb = gxa + 1;
+    float4* da = reinterpret_cast<float4*>(s_i + (r * SW + c) * PS);
+    float4* db = da + PS / 4;
+    const bool rowin = gy >= 0 && gy < H;
+    const bool ina = rowin && gxa >= 0 && gxa < W, inb = rowin && gxb < W;
+    if (!ina && !inb) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) dst[j * kPlane] = 0.0f;
+      for (int j = 0; j < 16; ++j) da[j] = db[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       continue;
     }
     const float sy = __fmul_rn(rh, (float)gy);
     const int y0 = (int)sy;
     const size_t dy = y0 < h - 1 ? (size_t)w : 0;
     const float ly1 = __fsub_rn(sy, (float)y0), ly0 = __fsub_rn(1.0f, ly1);
-    const float sx = __fmul_rn(rw, (float)gx);
-    const int x0 = (int)sx;
+    const int gxv = ina ? gxa : gxb;  // a pixel of the pair inside the image
+    const int x0 = (int)__fmul_rn(rw, (float)gxv);
     const int dx = x0 < w - 1 ? 1 : 0;
-    const float lx1 = __fsub_rn(sx, (float)x0), lx0 = __fsub_rn(1.0f, lx1);
+    const float la1 = __fsub_rn(__fmul_rn(rw, (float)gxa), (float)x0), la0 = __fsub_rn(1.0f, la1);
+    const float lb1 = __fsub_rn(__fmul_rn(rw, (float)gxb), (float)x0), lb0 = __fsub_rn(1.0f, lb1);
 
-    float l[CL];
+    float lta[CL], ltb[CL];
+    const float* lp = lat + (size_t)n * CL * HW + (size_t)gy * W + gxa;
 #pragma unroll
-    for (int j = 0; j < CL; ++j) l[j] = lat[((size_t)n * CL + j) * HW + (size_t)gy * W + gx];
-    const bool emit = intra_out != nullptr && r >= 1 && r <= TH && c >= 1 && c <= TW;
+    for (int j = 0; j < CL; ++j) {
+      lta[j] = ina ? lp[j * HW] : 0.0f;
+      ltb[j] = inb ? lp[j * HW + 1] : 0.0f;
+    }
+    const bool emit = intra_out != nullptr && r >= 1 && r <= TH;
+    const bool ea = emit && ina && c >= 1, eb = emit && inb && c + 1 <= TW;
     const float* p00 = prev + (size_t)n * 64 * hw + (size_t)y0 * w + x0;
-#pragma unroll 4
-    for (int j = 0; j < 16; ++j) {
-      const int ch = q * 16 + j;
-      const float* pc = p00 + ch * hw;
-      const float up = ly0 * (lx0 * pc[0] + lx1 * pc[dx]) + ly1 * (lx0 * pc[dy] + lx1 * pc[dy + dx]);
-      float acc = 0.0f;
+#pragma unroll 2
+    for (int q = 0; q < 16; ++q) {
+      float va[4], vb[4];
 #pragma unroll
-      for (int k = 0; k < CL; k += 4) {
-        const float4 wv = *reinterpret_cast<const float4*>(sp + L::W1 + ch * CL + k);
-        acc += wv.x * l[k] + wv.y * l[k + 1] + wv.z * l[k + 2] + wv.w * l[k + 3];
+      for (int j = 0; j < 4; ++j) {
+        const int ch = q * 4 + j;
+        const float* pc = p00 + ch * hw;
+        const float t00 = pc[0], t01 = pc[dx], t10 = pc[dy], t11 = pc[dy + dx];
+        const float upa = ly0 * (la0 * t00 + la1 * t01) + ly1 * (la0 * t10 + la1 * t11);
+        const float upb = ly0 * (lb0 * t00 + lb1 * t01) + ly1 * (lb0 * t10 + lb1 * t11);
+        float acca = 0.0f, accb = 0.0f;
+#pragma unroll
+        for (int k = 0; k < CL; k += 4) {
+          const float4 wv = *reinterpret_cast<const float4*>(sp + L::W1 + ch * CL + k);
+          acca += wv.x * lta[k] + wv.y * lta[k + 1] + wv.z * lta[k + 2] + wv.w * lta[k + 3];
+          accb += wv.x * ltb[k] + wv.y * ltb[k + 1] + wv.z * ltb[k + 2] + wv.w * ltb[k + 3];
+        }
+        const float b1 = sp[L::B1 + ch];
+        va[j] = ina ? upa + (acca + b1) : 0.0f;
+        vb[j] = inb ? upb + (accb + b1) : 0.0f;
+        float* io = intra_out + ((size_t)n * 64 + ch) * HW + (size_t)gy * W + gxa;
+        if (ea) io[0] = va[j];
+        if (eb) io[1] = vb[j];
       }
-      const float v = up + (acc + sp[L::B1 + ch]);
-      dst[j * kPlane] = v;
-      if (emit) intra_out[((size_t)n * 64 + ch) * HW + (size_t)gy * W + gx] = v;
+      da[q] = make_float4(va[0], va[1], va[2], va[3]);
+      db[q] = make_float4(vb[0], vb[1], vb[2], vb[3]);
     }
   }
   __syncthreads();
 
-  // Phase 2: the 3x3 conv; item = (4-pixel group, 8 output channels,
-  // 64 / KS input channels).
-  constexpr int NPG = TH * TW / 4, NOG = CO / 8, KS = L::KS, CPS = 64 / KS;
-  const int pg = tid % NPG, og = (tid / NPG) % NOG, ks = tid / (NPG * NOG);
-  const int r = pg / (TW / 4), c0 = (pg % (TW / 4)) * 4;
-  float acc[4][8];
+  // Phase 2: the 3x3 conv as an implicit GEMM on the tensor cores. A warp
+  // owns RW output rows: two, or four at CO = 8, where each B fragment
+  // then serves four M fragments and only half of the warps run this phase.
+  constexpr int RW = NF == 1 ? 4 : 2;
+  static_assert(RW * (kThreads / 32) >= TH, "the warps cover the tile's rows");
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = RW * warp;  // the warp's first output row in the tile
+  if (r0 >= TH || ty0 + r0 >= H) return;
+  float acc[RW][NF][4];
 #pragma unroll
-  for (int p = 0; p < 4; ++p)
+  for (int j = 0; j < RW; ++j)
 #pragma unroll
-    for (int o = 0; o < 8; ++o) acc[p][o] = 0.0f;
-  for (int ci = ks * CPS; ci < (ks + 1) * CPS; ++ci) {
+    for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int ky = 0; ky < 3; ++ky) {
-      const float* row = s_i + ci * kPlane + (r + ky) * SW + c0;
-      float x[6];
+      for (int e = 0; e < 4; ++e) acc[j][f][e] = 0.0f;
+
+  // A fragment rows g and g + 8 are pixels g and g + 8 of an intra' row;
+  // a lane reads channels 2t and 2t + 1 of its chunk.
+  const float* s_a = s_i + (r0 * SW + g) * PS + 2 * t;
+  const float4* wq = wpk + lane;
+#pragma unroll 1
+  for (int ck = 0; ck < 8; ++ck) {
+    // The tensor cores round the fp32 sum of each mma toward zero, so a
+    // long chain of them drifts: over all 576 products it ended several
+    // times less accurate than the FFMA body it replaced. A chunk's 72
+    // products are summed from zero and added to acc in round-to-nearest,
+    // which keeps the error near fp32's.
+    float part[RW][NF][4];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) x[j] = row[j];
+    for (int j = 0; j < RW; ++j)
 #pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* wp = sp + L::K3 + ((ci * 3 + ky) * 3 + kx) * CO + og * 8;
+      for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int p = 0; p < 4; ++p) fma8(acc[p], wp, x[p + kx]);
+        for (int e = 0; e < 4; ++e) part[j][f][e] = 0.0f;
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      // Output row r0 + j at tap (ky, kx) reads intra' row R = r0 + j + ky:
+      // each of the RW + 2 intra' rows is loaded and split once, at its
+      // first use, for the up to three (j, ky) that read it.
+      const float* pa = s_a + kx * PS + ck * 8;
+      uint32_t ah[RW + 2][4], al[RW + 2][4];
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky) {
+        float4 b[NF];
+#pragma unroll
+        for (int f = 0; f < NF; ++f) b[f] = __ldg(wq + ((ck * 9 + ky * 3 + kx) * NF + f) * 32);
+#pragma unroll
+        for (int j = 0; j < RW; ++j) {
+          const int R = j + ky;
+          if (ky == 0 || j == RW - 1) load_a(pa + R * SW * PS, ah[R], al[R]);
+#pragma unroll
+          for (int f = 0; f < NF; ++f) mma_3xtf32(part[j][f], ah[R], al[R], b[f]);
+        }
       }
     }
-  }
-  if (KS > 1) {
-    // The split's partial sums meet in shared memory (s_i is free now).
-    constexpr int NI = NPG * NOG;
-    const int item = tid % NI;
-    __syncthreads();
-    if (ks > 0)
 #pragma unroll
-      for (int j = 0; j < 32; ++j) s_i[(j * (KS - 1) + ks - 1) * NI + item] = acc[j / 8][j % 8];
-    __syncthreads();
-    if (ks == 0)
-      for (int s = 1; s < KS; ++s)
+    for (int j = 0; j < RW; ++j)
 #pragma unroll
-        for (int j = 0; j < 32; ++j) acc[j / 8][j % 8] += s_i[(j * (KS - 1) + s - 1) * NI + item];
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][f][e] += part[j][f][e];
   }
-  if (ks != 0) return;
 
-  const int gy = ty0 + r, gx = tx0 + c0;
-  if (gy >= H || gx >= W) return;
-  float y[4][8];
+  // Epilogue: bias, folded BN, swish. Accumulator e of fragment f holds
+  // pixel g + 8 * (e / 2), channel 8f + 2t + e % 2.
 #pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    const int oc = og * 8 + o;
+  for (int j = 0; j < RW; ++j) {
+    const int gy = ty0 + r0 + j;
+    if (gy >= H) continue;
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const float t = (acc[p][o] + sp[L::B3 + oc]) * sp[L::MU + oc] + sp[L::AD + oc];
-      y[p][o] = t * (1.0f / (1.0f + expf(-t)));  // swish, as x * sigmoid(x)
-    }
-  }
-  const bool vec = (W % 4 == 0) && gx + 3 < W;
+    for (int f = 0; f < NF; ++f) {
 #pragma unroll
-  for (int o = 0; o < 8; ++o) {
-    float* dst = out + ((size_t)n * CO + og * 8 + o) * HW + (size_t)gy * W + gx;
-    if (vec) {
-      *reinterpret_cast<float4*>(dst) = make_float4(y[0][o], y[1][o], y[2][o], y[3][o]);
-    } else {
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        if (gx + p < W) dst[p] = y[p][o];
+      for (int e = 0; e < 4; ++e) {
+        const int gx = tx0 + g + 8 * (e >> 1);
+        const int oc = 8 * f + 2 * t + (e & 1);
+        if (gx >= W) continue;
+        const float z = (acc[j][f][e] + sp[L::B3 + oc]) * sp[L::MU + oc] + sp[L::AD + oc];
+        out[((size_t)n * CO + oc) * HW + (size_t)gy * W + gx] = z * (1.0f / (1.0f + expf(-z)));
+      }
     }
   }
 }
 
 template <int CL, int CO>
-int launch(const float* prev, const float* lat, const float* params, float* out,
-           float* intra_out, int N, int h, int w, cudaStream_t stream) {
+int launch(const float* prev, const float* lat, const float* params, const float* wpk,
+           float* out, float* intra_out, int N, int h, int w, cudaStream_t stream) {
   using L = Level<CL, CO>;
   // Per device and cheap: set on every call so a second GPU is covered too.
   cudaError_t err = cudaFuncSetAttribute(fpn_level_kernel<CL, CO>,
@@ -215,19 +318,41 @@ int launch(const float* prev, const float* lat, const float* params, float* out,
   const float rw = (float)(w - 1) / (float)(W - 1);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, N);
   fpn_level_kernel<CL, CO><<<grid, kThreads, L::kSmemBytes, stream>>>(
-      prev, lat, params, out, intra_out, h, w, rh, rw);
+      prev, lat, params, reinterpret_cast<const float4*>(wpk), out, intra_out, h, w, rh, rw);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int CL, int CO>
+int blocks_per_sm() {
+  using L = Level<CL, CO>;
+  cudaError_t err = cudaFuncSetAttribute(fpn_level_kernel<CL, CO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::kSmemBytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fpn_level_kernel<CL, CO>,
+                                                        kThreads, L::kSmemBytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" int fpn_level_f32(const float* prev, const float* lat, const float* params,
-                             float* out, float* intra_out, int N, int h, int w, int cl,
-                             int co, void* stream) {
+                             const float* wpk, float* out, float* intra_out, int N, int h,
+                             int w, int cl, int co, void* stream) {
   if (N < 1 || N > 65535 || h < 1 || w < 1 || (2 * h + TH - 1) / TH > 65535) return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cl == 32 && co == 32) return launch<32, 32>(prev, lat, params, out, intra_out, N, h, w, s);
-  if (cl == 16 && co == 16) return launch<16, 16>(prev, lat, params, out, intra_out, N, h, w, s);
-  if (cl == 8 && co == 8) return launch<8, 8>(prev, lat, params, out, intra_out, N, h, w, s);
+  if (cl == 32 && co == 32) return launch<32, 32>(prev, lat, params, wpk, out, intra_out, N, h, w, s);
+  if (cl == 16 && co == 16) return launch<16, 16>(prev, lat, params, wpk, out, intra_out, N, h, w, s);
+  if (cl == 8 && co == 8) return launch<8, 8>(prev, lat, params, wpk, out, intra_out, N, h, w, s);
+  return -1;
+}
+
+// Resident blocks per SM of the level's kernel (negative: a CUDA error), for
+// the occupancy the design note promises.
+extern "C" int fpn_level_blocks_per_sm(int cl, int co) {
+  if (cl == 32 && co == 32) return blocks_per_sm<32, 32>();
+  if (cl == 16 && co == 16) return blocks_per_sm<16, 16>();
+  if (cl == 8 && co == 8) return blocks_per_sm<8, 8>();
   return -1;
 }

@@ -12,6 +12,12 @@ with up2 the 2x bilinear resize with align_corners=True. The kernel is
 level of `FPNDecoder`. `fpn_level` launches the kernel for CUDA tensors and
 runs the plain version only for CPU tensors.
 
+The kernel runs the 3x3 conv on the tensor cores in 3xTF32: each operand is
+split into hi = tf32(x) and lo = tf32(x - hi), and each product summed as
+lo*hi + hi*lo + hi*hi in fp32, which keeps fp32's accuracy. `tf32_round`
+and `pack_k3` are the plain helpers the wrapper splits and packs the 3x3
+weights with, on the weights' device.
+
 Weights are torch layout: w1 [64,cl,1,1], b1 [64], k3 [co,64,3,3], b3 [co];
 `fold` is the folded BN (mul, add) [co]. The kernel takes
 (cl, co) in {(32, 32), (16, 16), (8, 8)}, the three levels of the decoder.
@@ -41,6 +47,34 @@ def fpn_level_plain(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool 
     return (out, intra) if emit_intra else out
 
 
+def tf32_round(x):
+    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as `cvt.rna.tf32.f32` rounds: the 13 low mantissa bits are 0."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): hi + lo is x within
+    2^-22 |x| (x - hi is exact in float32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def pack_k3(k3):
+    """k3 [co,64,3,3] -> its TF32 hi and lo parts in mma.m16n8k8 B-fragment
+    order, [8 chunks, 9 taps, co/8, 32 lanes, 4].
+
+    Fragment (chunk, tap = 3 ky + kx, f) is the 8x8 block of input channels
+    8 chunk .. 8 chunk + 7 and output channels 8f .. 8f + 7. Lane 4g + t
+    holds b0 (row t) and b1 (row t + 4) of column g as (hi b0, hi b1, lo b0,
+    lo b1), where rows t and t + 4 are input channels 8 chunk + 2t and
+    8 chunk + 2t + 1 (the kernel orders the A columns the same way)."""
+    co = k3.shape[0]
+    parts = [part.reshape(co // 8, 8, 8, 4, 2, 9).permute(2, 5, 0, 1, 3, 4)
+             for part in split_tf32(k3.float().contiguous())]  # [chunk, tap, f, g, t, row pair]
+    return torch.stack(parts, dim=-2).reshape(8, 9, co // 8, 32, 4).contiguous()
+
+
 def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = False):
     """The K5 wrapper; same arguments and results as the plain version."""
     what = "fpn_level"
@@ -64,10 +98,10 @@ def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = Fals
         if tuple(t.shape) != shape:
             raise ValueError(f"{what}: {key} must be {shape}, got {tuple(t.shape)}")
     cuda_build.check_f32_contiguous(what, intra_prev=intra_prev, lateral=lateral)
-    # w1 as [c][l] (a channel's lateral weights contiguous), k3 as
-    # [ci][ky][kx][o] (a tap's output channels contiguous): float4 reads.
-    params = torch.cat([t.float().reshape(-1) for t in (
-        w1[:, :, 0, 0], b1, k3.permute(1, 2, 3, 0), b3, mul, add)]).contiguous()
+    # w1 as [c][l] (a channel's lateral weights contiguous: float4 reads),
+    # then the biases and the BN fold; k3 split and packed for the mma.
+    params = torch.cat([t.float().reshape(-1) for t in (w1, b1, b3, mul, add)])
+    wpk = pack_k3(k3)
     H, W = 2 * h, 2 * w
     out = torch.empty((N, co, H, W), dtype=torch.float32, device=intra_prev.device)
     intra = (torch.empty((N, 64, H, W), dtype=torch.float32, device=intra_prev.device)
@@ -76,7 +110,8 @@ def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = Fals
     with torch.cuda.device(intra_prev.device):
         stream = torch.cuda.current_stream(intra_prev.device).cuda_stream
         rc = lib.fpn_level_f32(intra_prev.data_ptr(), lateral.data_ptr(), params.data_ptr(),
-                               out.data_ptr(), 0 if intra is None else intra.data_ptr(),
+                               wpk.data_ptr(), out.data_ptr(),
+                               0 if intra is None else intra.data_ptr(),
                                N, h, w, cl, co, stream)
     cuda_build.check_launch(rc, what)
     cuda_build.LAUNCHES[what] += 1

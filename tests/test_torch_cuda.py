@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from mvsformer_torch.models.blocks import swish
 from mvsformer_torch.ops import cuda_build, geometry
 from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
 from mvsformer_torch.ops.fpn_level import LEVELS, fpn_level, fpn_level_plain
@@ -144,9 +145,10 @@ def level_weights(rng, t, cl, co):
             (t(rng.uniform(0.5, 1.5, co)), t(0.1 * rng.standard_normal(co))))
 
 
-# Odd h and w, tiles cut by the image edge, a 1-pixel-high level.
+# Odd h and w, tiles (16 x 16 outputs, 16-pixel M fragments) cut by the
+# image edge, a 1-pixel-high level, N = 3.
 @pytest.mark.parametrize("emit", [True, False])
-@pytest.mark.parametrize("N,h,w", [(2, 7, 9), (1, 12, 20), (1, 1, 3)])
+@pytest.mark.parametrize("N,h,w", [(2, 7, 9), (1, 12, 20), (1, 1, 3), (3, 1, 5), (3, 7, 9)])
 @pytest.mark.parametrize("cl,co", LEVELS)
 def test_fpn_level_matches_plain(dev, cl, co, N, h, w, emit):
     rng = np.random.default_rng(4)
@@ -157,8 +159,32 @@ def test_fpn_level_matches_plain(dev, cl, co, N, h, w, emit):
     got = fpn_level(prev, lat, *weights, emit_intra=emit)
     assert cuda_build.LAUNCHES["fpn_level"] == before + 1
     want = fpn_level_plain(prev, lat, *weights, emit_intra=emit)
-    # fp32; the same align-corners weights, 64 x 9 + cl products in another order.
+    # fp32 (3xTF32 on the tensor cores); the same align-corners weights,
+    # 64 x 9 + cl products in another order.
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("cl,co", LEVELS)
+def test_fpn_level_is_fp32_accurate_over_a_wide_range(dev, cl, co):
+    """Inputs with |x| from 1e-3 to 1e2, against the 3x3 conv, BN and swish
+    in float64 on the plain version's fp32 intra' (so both interpolate with
+    the same fp32 weights): within 1e-5 of the output's scale, ten times
+    under K5's bound. The CPU emulation of 3xTF32 reads about 4e-7 of scale
+    and one TF32 product about 3e-4 (tests/test_torch_fpn_tf32.py)."""
+    rng = np.random.default_rng(12)
+    t = tensor(dev)
+    N, h, w = 3, 7, 9
+    wide = lambda s: rng.choice([-1.0, 1.0], s) * 10.0 ** rng.uniform(-3, 2, s)
+    prev, lat = t(wide((N, 64, h, w))), t(wide((N, cl, 2 * h, 2 * w)))
+    weights = level_weights(rng, t, cl, co)
+    out, intra = fpn_level(prev, lat, *weights, emit_intra=True)
+    _, want_intra = fpn_level_plain(prev, lat, *weights, emit_intra=True)
+    _, _, k3, b3, (mul, add) = weights
+    y = torch.nn.functional.conv2d(want_intra.double(), k3.double(), b3.double(), padding=1)
+    want = swish(y * mul.double().view(1, -1, 1, 1) + add.double().view(1, -1, 1, 1))
+    for got, ref in ((out, want), (intra, want_intra)):
+        scale = float(ref.abs().max())
+        assert float((got.double() - ref.double()).abs().max()) <= 1e-5 * scale
 
 
 # N not a multiple of the 128-row block; Nk above the 64-key chunk and not
