@@ -7,8 +7,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. Print the card's name and power limit (nvidia-smi).
 2. Build every CUDA kernel from `mvsformer_torch/csrc/` (one nvcc per
-   source, all at once) and print the build time, and K5's resident blocks
-   per SM at each level (its design needs two).
+   source, all at once) and print the build time, each kernel's ptxas
+   registers and spills, K5's resident blocks per SM at each level (its
+   design needs two) and K2's (its design needs three).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -64,12 +65,14 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
-the tensor cores), the published H100 SXM peaks. K5 runs its 3x3 conv on
-the tensor cores in 3xTF32 (three TF32 products per multiply-add, which
-keeps fp32's accuracy), so its bound has a third term: 3 x 2 x the conv's
-multiply-adds over 494.7 TFLOP/s (dense TF32), with its other operations
-over 67 TFLOP/s; its lines name the term that binds ("bytes", "tensor" or
-"operations") and the kernel's share of the bound.
+the tensor cores), the published H100 SXM peaks. K2 runs layers 1 and 2
+and K5 its 3x3 conv on the tensor cores in 3xTF32 (three TF32 products per
+multiply-add, which keeps fp32's accuracy), so their bounds have a third
+term: 3 x 2 x those multiply-adds over 494.7 TFLOP/s (dense TF32), with
+their other operations over 67 TFLOP/s; their lines name the term that
+binds ("bytes", "tensor" or "operations") and the kernel's share of the
+bound. A kernel's entry in the kernels line sums the bounds of its
+launches, and names the tensor term "operations".
 """
 
 from __future__ import annotations
@@ -95,7 +98,9 @@ DEPTH_MIN, DEPTH_MAX = 425.0, 900.0
 #     error is a few ulps of the correlation's scale.
 K1_RTOL_OF_SCALE = 1e-4   # |corr error| <= 1e-4 * max|corr|
 K1_ENT_ATOL = 1e-3        # entropy in nats, <= log(32) ~ 3.47
-# K2: ~3.6k multiply-adds per pixel summed in another order than cuDNN's.
+# K2: ~3.6k multiply-adds per pixel summed in another order than cuDNN's,
+#     layers 1-2 in 3xTF32 (fp32's accuracy; one TF32 product would read
+#     ~1.7e-4, tests/test_torch_vis_tf32.py).
 K2_ATOL = 1e-5            # weights lie in (0, 1)
 # K3: exp(tmp*(l-m)) against softmax(tmp*l): weights differ by ~1e-6
 #     relative; the depth is a weighted mean of depths ~500 apart.
@@ -224,8 +229,10 @@ def k2_cost(args, kwargs):
     ent = args[0]
     n, h, w = ent.shape
     nbytes = 4 * (2 * n * h * w + 3689)
-    flops = n * h * w * (2 * (9 * 16 + 144 * 16 + 144 * 8 + 8) + 3 * 40 + 4)
-    return nbytes, flops
+    # Outside the tensor cores, per pixel: layer 0's and the head's
+    # multiply-adds, BN and ReLU on 40 channels, the bias and the sigmoid.
+    # On them: layers 1 and 2, 144 x 16 + 144 x 8 multiply-adds.
+    return nbytes, n * h * w * (2 * (9 * 16 + 8) + 3 * 40 + 4), n * h * w * 144 * 24
 
 
 def k3_cost(args, kwargs):
@@ -291,7 +298,7 @@ def k8_cost(args, kwargs):
 def bound_ms(nbytes, flops, tensor_macs=0):
     """(least ms, the term that binds): bytes over the memory rate, fp32
     operations over the CUDA cores' rate and, for a kernel on the tensor
-    cores (K5), its 3xTF32 products over the dense TF32 rate."""
+    cores (K2, K5), its 3xTF32 products over the dense TF32 rate."""
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOPS_PER_S,
              "tensor": TF32_PRODUCTS * 2 * tensor_macs / TF32_FLOPS_PER_S}
     by = max(times, key=times.get)  # ties go to bytes, then operations
@@ -488,16 +495,22 @@ def check_kernel(torch, card, name, spec, label, args, kwargs):
 
 
 def kernel_row(name, spec, rows, launches):
-    """One entry of the kernels JSON line, summed over the checked launches."""
-    b_ms, b_by = bound_ms(*(sum(r[k] for r in rows) for k in ("bytes", "flops", "tensor_macs")))
+    """One entry of the kernels JSON line, summed over the checked launches:
+    the bound is the sum of the launches' bounds, and bound_by the term
+    that binds the most of it (the tensor cores' term counts as
+    operations)."""
+    by_term = {}
+    for r in rows:
+        term = "operations" if r["bound_by"] == "tensor" else r["bound_by"]
+        by_term[term] = by_term.get(term, 0.0) + r["bound_ms"]
     return {
         "name": name, "route": spec["route"], "source": spec["source"],
         "replaces": spec["replaces"], "launches": launches,
         "max_abs_err": max(r["err"] for r in rows),
         "ms": sum(r["ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "bound_ms": sum(by_term.values()),
+        "bound_by": max(by_term, key=by_term.get),
         "library_ms": (sum(r["library_ms"] for r in rows) if "library" in spec else None),
     }
 
@@ -869,6 +882,10 @@ def main() -> int:
     print(f"fpn_level resident blocks per SM, by (cl/co): {occupancy}")
     if min(occupancy.values()) < 2:
         raise RuntimeError("fpn_level: fewer than two blocks share an SM")
+    vis_blocks = cuda_build.library("vis_net").visibility_net_blocks_per_sm()
+    print(f"visibility_net resident blocks per SM: {vis_blocks}")
+    if vis_blocks < 3:
+        raise RuntimeError("visibility_net: fewer than three blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1057,6 +1074,7 @@ def main() -> int:
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
+        "k2_blocks_per_sm": vis_blocks,
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,

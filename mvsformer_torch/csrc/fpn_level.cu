@@ -66,6 +66,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -89,42 +91,11 @@ struct Level {
   static_assert(CL % 4 == 0 && CO % 8 == 0 && kParams % 4 == 0, "float4 layout");
 };
 
-// x = hi + lo with hi = tf32(x), lo = tf32(x - hi), as ops/fpn_level.py
-// split_tf32: cvt.rna leaves the 13 low mantissa bits zero, and x - hi is
-// exact in fp32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(__fsub_rn(x, __uint_as_float(hi))));
-}
-
 // The A fragment of 8 channels of two 8-pixel groups, split into hi and lo:
-// x0 holds pixel g's channels 2t and 2t + 1 (columns t and t + 4, rows g),
-// x1 pixel g + 8's (rows g + 8).
+// pixel g's channels 2t and 2t + 1 (rows g), pixel g + 8's (rows g + 8).
 __device__ __forceinline__ void load_a(const float* pa, uint32_t* ah, uint32_t* al) {
-  const float2 x0 = *reinterpret_cast<const float2*>(pa);
-  const float2 x1 = *reinterpret_cast<const float2*>(pa + 8 * PS);
-  split_tf32(x0.x, ah[0], al[0]);
-  split_tf32(x1.x, ah[1], al[1]);
-  split_tf32(x0.y, ah[2], al[2]);
-  split_tf32(x1.y, ah[3], al[3]);
-}
-
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, float b0, float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
-        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
-}
-
-// One multiply-add step in 3xTF32: the small cross terms, then hi * hi.
-// b holds the lane's B fragment as (hi b0, hi b1, lo b0, lo b1).
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah, const uint32_t* al,
-                                           float4 b) {
-  mma_tf32(d, al, b.x, b.y);
-  mma_tf32(d, ah, b.z, b.w);
-  mma_tf32(d, ah, b.x, b.y);
+  split_a(*reinterpret_cast<const float2*>(pa), *reinterpret_cast<const float2*>(pa + 8 * PS),
+          ah, al);
 }
 
 template <int CL, int CO>

@@ -3,9 +3,9 @@
 Port of `mvsformer_tpu/models/mvsformer.py`: FPN encoder + Twins backbone
 fused by TwinDecoderStage4, then a 4-stage coarse-to-fine cascade of
 StageNets with inverse-depth (or metric) hypothesis scheduling and a
-stage-averaged confidence. Inputs keep the JAX layout: images
-[B, V, H, W, 3], projections {stageK: [B, V, 2, 4, 4]}, depth_values
-[B, Dfull]. Inside, maps are NCHW.
+stage-averaged confidence (ce; the last stage's for was). Inputs keep the
+JAX layout: images [B, V, H, W, 3], projections {stageK: [B, V, 2, 4, 4]},
+depth_values [B, Dfull]. Inside, maps are NCHW.
 
 The forward follows `self.training`, as the JAX model follows its
 `training` argument: batch-statistics BN, stochastic depth in the backbone
@@ -81,6 +81,9 @@ class TwinMVSNet(nn.Module):
 
         outputs = {}
         prev = None
+        # The stages' confidences are averaged for the ce decodes, as the JAX
+        # model does; other depth types return the last stage's.
+        averaged = cfg.depth_type in ("ce", "mixup_ce")
         conf_sum = torch.zeros((B, H, W), dtype=torch.float32, device=imgs.device)
         depth_interval = depth_values[:, 1] - depth_values[:, 0]
         for stage_idx, ndepth in enumerate(cfg.ndepths):
@@ -102,12 +105,14 @@ class TwinMVSNet(nn.Module):
             prev = self.fusions[stage_idx](feat[:, 0], feat[:, 1:], projs[:, 0],
                                            projs[:, 1:], samples, stage_tmp)
             outputs[f"stage{stage_idx + 1}"] = prev
-            conf = prev["photometric_confidence"]
-            if conf.shape[1:] != (H, W):
-                conf = resize_nearest(conf, (H, W))
-            conf_sum = conf_sum + conf
+            if averaged:
+                conf = prev["photometric_confidence"]
+                if conf.shape[1:] != (H, W):
+                    conf = resize_nearest(conf, (H, W))
+                conf_sum = conf_sum + conf
         outputs["refined_depth"] = prev["depth"]
-        outputs["photometric_confidence"] = conf_sum / len(cfg.ndepths)
+        outputs["photometric_confidence"] = (conf_sum / len(cfg.ndepths) if averaged
+                                             else prev["photometric_confidence"])
         return outputs
 
 

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exports plain C functions. On first use it is compiled
 with `nvcc -gencode arch=compute_90a,code=sm_90a` into
 `build/kernels/lib<name>-<hash>.so` at the root of the checkout (the hash
-covers the source and the flags, so an edited source rebuilds) and loaded
+covers the source, the shared `csrc/*.cuh` headers and the flags, so an
+edited source or header rebuilds) and loaded
 with ctypes. `build()` compiles every source at once, one `nvcc` each.
 
 `LAUNCHES` counts kernel launches by wrapper name: each wrapper adds one
@@ -35,12 +36,16 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # Exported C functions and their argument types. Every launching function
 # returns the launch's cudaError_t as an int (0 = success, -1 = shape not
-# supported); fpn_level_blocks_per_sm returns a count.
+# supported); the *_blocks_per_sm and *_packed_floats functions return a
+# count.
 SIGNATURES = {
     "warp_corr": {"warp_group_corr_f32": [_P] * 6 + [_I] * 7 + [_P],
                   "warp_corr_fwd_f32": [_P] * 5 + [_I] * 7 + [_P]},
     "warp_corr_bwd": {"warp_corr_bwd_f32": [_P] * 7 + [_I] * 7 + [_P]},
-    "vis_net": {"visibility_net_f32": [_P] * 3 + [_I] * 3 + [_P]},
+    "vis_net": {"visibility_net_pack_f32": [_P] * 13,
+                "visibility_net_f32": [_P] * 3 + [_I] * 3 + [_P],
+                "visibility_net_packed_floats": [],
+                "visibility_net_blocks_per_sm": []},
     "encoder_head": {"encoder_head_f32": [_P] * 4 + [_I] * 3 + [_P]},
     "fpn_level": {"fpn_level_f32": [_P] * 6 + [_I] * 5 + [_P],
                   "fpn_level_blocks_per_sm": [_I] * 2},
@@ -63,9 +68,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path; its hash covers the source, every shared header
+    of `csrc/` (any source may include one) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=tuple(SIGNATURES)) -> dict:

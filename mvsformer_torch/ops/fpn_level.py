@@ -14,9 +14,10 @@ runs the plain version only for CPU tensors.
 
 The kernel runs the 3x3 conv on the tensor cores in 3xTF32: each operand is
 split into hi = tf32(x) and lo = tf32(x - hi), and each product summed as
-lo*hi + hi*lo + hi*hi in fp32, which keeps fp32's accuracy. `tf32_round`
-and `pack_k3` are the plain helpers the wrapper splits and packs the 3x3
-weights with, on the weights' device.
+lo*hi + hi*lo + hi*hi in fp32, which keeps fp32's accuracy. `pack_k3` is
+the plain helper the wrapper splits and packs the 3x3 weights with, on the
+weights' device; it and `tf32_round` / `split_tf32` live in `ops/tf32.py`
+and are exported here under their old names.
 
 Weights are torch layout: w1 [64,cl,1,1], b1 [64], k3 [co,64,3,3], b3 [co];
 `fold` is the folded BN (mul, add) [co]. The kernel takes
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from mvsformer_torch.models.blocks import swish
 from mvsformer_torch.ops import cuda_build
 from mvsformer_torch.ops.resize import resize_bilinear
+from mvsformer_torch.ops.tf32 import pack_conv3x3, split_tf32, tf32_round  # noqa: F401
 
 LEVELS = ((32, 32), (16, 16), (8, 8))  # (cl, co) the kernel is built for
 
@@ -47,32 +49,10 @@ def fpn_level_plain(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool 
     return (out, intra) if emit_intra else out
 
 
-def tf32_round(x):
-    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as `cvt.rna.tf32.f32` rounds: the 13 low mantissa bits are 0."""
-    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_tf32(x):
-    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): hi + lo is x within
-    2^-22 |x| (x - hi is exact in float32)."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
-
-
 def pack_k3(k3):
     """k3 [co,64,3,3] -> its TF32 hi and lo parts in mma.m16n8k8 B-fragment
-    order, [8 chunks, 9 taps, co/8, 32 lanes, 4].
-
-    Fragment (chunk, tap = 3 ky + kx, f) is the 8x8 block of input channels
-    8 chunk .. 8 chunk + 7 and output channels 8f .. 8f + 7. Lane 4g + t
-    holds b0 (row t) and b1 (row t + 4) of column g as (hi b0, hi b1, lo b0,
-    lo b1), where rows t and t + 4 are input channels 8 chunk + 2t and
-    8 chunk + 2t + 1 (the kernel orders the A columns the same way)."""
-    co = k3.shape[0]
-    parts = [part.reshape(co // 8, 8, 8, 4, 2, 9).permute(2, 5, 0, 1, 3, 4)
-             for part in split_tf32(k3.float().contiguous())]  # [chunk, tap, f, g, t, row pair]
-    return torch.stack(parts, dim=-2).reshape(8, 9, co // 8, 32, 4).contiguous()
+    order, [8 chunks, 9 taps, co/8, 32 lanes, 4] (`ops/tf32.pack_conv3x3`)."""
+    return pack_conv3x3(k3)
 
 
 def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = False):

@@ -17,7 +17,8 @@ from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
 from mvsformer_torch.ops.fpn_level import LEVELS, fpn_level, fpn_level_plain
 from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 from mvsformer_torch.ops.stage_tail import depth_decode, depth_decode_plain
-from mvsformer_torch.ops.vis_net import visibility_net, visibility_net_plain
+from mvsformer_torch.ops.tf32 import pack_conv3x3
+from mvsformer_torch.ops.vis_net import PACKED_FLOATS, pack, visibility_net, visibility_net_plain
 from mvsformer_torch.ops.warp_corr import (warp_corr_fwd, warp_corr_fwd_plain, warp_group_corr,
                                            warp_group_corr_plain)
 from mvsformer_torch.ops.warp_corr_train import (WarpCorrTrain, warp_corr_bwd,
@@ -71,19 +72,69 @@ def test_warp_group_corr_matches_plain(dev, B, V, H, W, C, D):
     torch.testing.assert_close(ent, want_ent, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("N,H,W", [(4, 144, 192), (3, 17, 50)])
-def test_visibility_net_matches_plain(dev, N, H, W):
-    rng = np.random.default_rng(1)
+def vis_inputs(rng, dev, N, H, W):
+    """K2's weights at the model's scale, then ent in [0, 3.5]."""
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     ks = [t(rng.standard_normal(s) * f) for s, f in
           (((16, 1, 3, 3), 9 ** -0.5), ((16, 16, 3, 3), 144 ** -0.5), ((8, 16, 3, 3), 144 ** -0.5))]
     folds = [(t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)))
              for c in (16, 16, 8)]
     k3, b3 = t(rng.standard_normal((1, 8, 1, 1)) * 0.35), t(rng.standard_normal(1) * 0.1)
-    ent = t(rng.uniform(0, 3.5, (N, H, W)))
-    got = visibility_net(ent, *ks, k3, b3, folds)
-    want = visibility_net_plain(ent, *ks, k3, b3, folds)
+    return t(rng.uniform(0, 3.5, (N, H, W))), (*ks, k3, b3, folds)
+
+
+# Tiles (16 x 16 outputs) cut by the image edge: 3 x 17 x 50.
+@pytest.mark.parametrize("N,H,W", [(4, 144, 192), (3, 17, 50)])
+def test_visibility_net_matches_plain(dev, N, H, W):
+    ent, weights = vis_inputs(np.random.default_rng(1), dev, N, H, W)
+    before = cuda_build.LAUNCHES["visibility_net"]
+    got = visibility_net(ent, *weights)
+    assert cuda_build.LAUNCHES["visibility_net"] == before + 1
+    want = visibility_net_plain(ent, *weights)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)  # fp32, sum order
+
+
+@pytest.mark.parametrize("N,H,W", [(2, 144, 192), (3, 17, 50)])
+def test_visibility_net_is_fp32_accurate(dev, N, H, W):
+    """K2 (3xTF32 on the tensor cores) against visibility_net_plain's
+    layers evaluated in float64: within 2e-6. The CPU emulation of 3xTF32
+    reads 1.5e-7 to 1.8e-7 against the fp32 plain version, one TF32
+    product 1.7e-4 (tests/test_torch_vis_tf32.py)."""
+    ent, (k0, k1, k2, k3, b3, folds) = vis_inputs(np.random.default_rng(13), dev, N, H, W)
+    got = visibility_net(ent, k0, k1, k2, k3, b3, folds)
+    x = ent[:, None].double()
+    for k, (mul, add) in zip((k0, k1, k2), folds):
+        x = torch.nn.functional.conv2d(x, k.double(), padding=1)
+        x = torch.relu(x * mul.double().view(1, -1, 1, 1) + add.double().view(1, -1, 1, 1))
+    want = torch.sigmoid(torch.nn.functional.conv2d(x, k3.double(), b3.double()))[:, 0]
+    assert float((got.double() - want).abs().max()) <= 2e-6
+
+
+def test_visibility_net_packs_its_weights_as_pack_conv3x3(dev):
+    """The device pack kernel writes layer 0's weights as [tap][channel],
+    the folded BNs and the head, then k1's and k2's TF32 parts in the
+    layout of ops/tf32.pack_conv3x3, bit for bit."""
+    _, (k0, k1, k2, k3, b3, folds) = vis_inputs(np.random.default_rng(14), dev, 1, 8, 8)
+    lib = cuda_build.library("vis_net")
+    assert lib.visibility_net_packed_floats() == PACKED_FLOATS
+    packed = pack(lib, k0, k1, k2, k3, b3, folds, torch.cuda.current_stream().cuda_stream)
+    (m0, a0), (m1, a1), (m2, a2) = folds
+    params = torch.cat([t.reshape(-1) for t in
+                        (k0.reshape(16, 9).t(), m0, a0, m1, a1, m2, a2, k3, b3)])
+    w1, w2 = pack_conv3x3(k1).reshape(-1), pack_conv3x3(k2).reshape(-1)
+    assert torch.equal(packed[:233], params)
+    assert torch.equal(packed[236:236 + w1.numel()], w1)
+    assert torch.equal(packed[236 + w1.numel():], w2)
+
+
+def test_visibility_net_raises_instead_of_falling_back(dev):
+    ent, (k0, k1, k2, k3, b3, folds) = vis_inputs(np.random.default_rng(15), dev, 1, 8, 8)
+    with pytest.raises(ValueError):  # a CPU weight among CUDA tensors
+        visibility_net(ent, k0, k1.cpu(), k2, k3, b3, folds)
+    with pytest.raises(ValueError):  # a weight the kernel cannot read as laid out
+        visibility_net(ent, k0, k1.transpose(2, 3), k2, k3, b3, folds)
+    with pytest.raises(TypeError):  # float64 is not taken
+        visibility_net(ent.double(), k0, k1, k2, k3, b3, folds)
 
 
 @pytest.mark.parametrize("shape", [(1, 32, 144, 192), (2, 4, 37, 45)])

@@ -168,6 +168,37 @@ def test_port_matches_jax_default_config(both, jax_default, stage):
                                j["photometric_confidence"], rtol=0, atol=CONF_ATOL)
 
 
+@pytest.fixture(scope="module")
+def was_outputs(both):
+    """depth_type="was" on both sides: the port's model with the weights of
+    `both`, and the JAX model on the tree convert_full_twin makes of the
+    port's state_dict; one forward each. Each stage decodes as for ce, but
+    the final confidence is the last stage's, not the stages' mean."""
+    cfg = dict(CFG, depth_type="was")
+    model = build_model(ModelConfig(**cfg), device="cpu")
+    model.load_state_dict(both["model"].state_dict())
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    params, stats = convert_full_twin(sd, ndepths=tuple(CFG["ndepths"]), model_th=8)
+    jmodel = jax_build_model(JaxModelConfig(**cfg, fused_enc_head=False, fused_fpn_final=False,
+                                            fused_fpn_l2=False), dtype=jnp.float32)
+    imgs, projs, dv = both["batch"]
+    jout = jax.jit(lambda v, i, p, d: jmodel.apply(v, i, p, d, training=False, tmp=TMPS))(
+        {"params": params, "batch_stats": stats},
+        jnp.asarray(imgs), jax.tree.map(jnp.asarray, projs), jnp.asarray(dv))
+    depth, conf, stage_confs = make_infer_fn(model, TMPS)(imgs, projs, dv)
+    return dict(jout=jax.tree.map(np.asarray, jout), refined_depth=depth.numpy(),
+                photometric_confidence=conf.numpy(), last_stage=stage_confs[-1].numpy())
+
+
+@pytest.mark.parametrize("output,atol", [("refined_depth", DEPTH_ATOL),
+                                         ("photometric_confidence", CONF_ATOL)])
+def test_was_model_matches_jax(was_outputs, output, atol):
+    np.testing.assert_allclose(was_outputs[output], was_outputs["jout"][output], rtol=0,
+                               atol=atol)
+    if output == "photometric_confidence":
+        np.testing.assert_array_equal(was_outputs[output], was_outputs["last_stage"])
+
+
 def test_bridge_round_trip_gives_back_the_flax_tree(both):
     """convert_full_twin(port.state_dict()) is exactly the tree the bridge
     started from: the port's key names are the reference checkpoint's."""
