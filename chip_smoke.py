@@ -9,7 +9,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. Build every CUDA kernel from `mvsformer_torch/csrc/` (one nvcc per
    source, all at once) and print the build time, each kernel's ptxas
    registers and spills, K5's resident blocks per SM at each level (its
-   design needs two) and K2's (its design needs three).
+   design needs two), K2's (its design needs three) and K1's and K7's at
+   each DTU stage (their design needs four).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -32,10 +33,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    and one under torch.profiler for the device's idle share.
 6. With TF32 off, hold every kernel against its plain PyTorch version on
    the card, on the tensors the forward fed it at every call of the
-   recorded request (K1-K3 at each of the 4 stages, and K1 once more at
-   V=1, the one-view form; K4 once; K5 at each FPN level; K6 at each GSA
-   block), and time both; for K6 also time scaled_dot_product_attention on
-   the same inputs as the library yardstick.
+   recorded request (K1-K3 at each of the 4 stages, and K1 twice more: at
+   stage 4 with V=1, the one-view form, and at stage 1 with B=2, the
+   recorded sample beside a second one with its own depths and cameras;
+   K4 once; K5 at each FPN level; K6 at each GSA block), and time both; for
+   K6 also time scaled_dot_product_attention on the same inputs as the
+   library yardstick. Print K1's time per stage.
 7. Run the __graft_entry__ request (B=1, 3 views, 128x128, 192 depths) on
    the card and, with the same weights, on the CPU (the plain versions),
    TF32 off, and compare depth and confidences.
@@ -54,7 +57,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    device's idle share and top kernels), and one records the tensors it
    feeds K7 and K8.
 9. With TF32 off, hold K7 and K8 against their plain versions on the card
-   at each of those 8 + 8 launches, and time both.
+   at each of those 8 + 8 launches, and time both. Print K7's time per
+   stage.
 10. Run one fp32 training step (the __graft_entry__ request's cameras,
    B=2 as 2 micro-batches, 3 views, 128x128, 192 depths, drop path 0, no
    warmup) on the card and, with the same weights and batch, on the CPU,
@@ -223,6 +227,18 @@ def k1_cost(args, kwargs):
     # C FMAs for the products, G means, ~10 for the entropy.
     flops = b * v * d * hw * (30 + 8 * c + 2 * c + g + 10)
     return nbytes, flops
+
+
+def k1_two_samples(torch, ref, src, src_projs, ref_proj, dv):
+    """K1's inputs at B=2: the recorded sample, and beside it a second one
+    with its source views in reverse order (other cameras for each view) and
+    its depths moved to 1.15 d + 30 (another range)."""
+    flip = lambda t: t.flip(1)
+    return (torch.cat([ref, ref.flip(2)]).contiguous(),
+            torch.cat([src, flip(src)]).contiguous(),
+            torch.cat([src_projs, flip(src_projs)]).contiguous(),
+            torch.cat([ref_proj, ref_proj]).contiguous(),
+            torch.cat([dv, dv * 1.15 + 30.0]).contiguous())
 
 
 def k2_cost(args, kwargs):
@@ -809,6 +825,11 @@ def training_phase(torch, card, eval_kernels):
                 for name, spec in specs.items()}
     kernels = [kernel_row(name, spec, per_call[name], launches.get(name, 0))
                for name, spec in specs.items()]
+    k7 = [r["ms"] for r in per_call["warp_corr_fwd"]]
+    print("warp_corr_fwd (K7) ms per stage, "
+          + ", ".join(f"micro-batch {m + 1}: " + " / ".join(
+              f"{t:.4f}" for t in k7[m * nstages:(m + 1) * nstages]) for m in range(n_micro))
+          + f"; {sum(k7):.4f} per step [{card}]")
     del recorded, model, step, batch
     torch.cuda.empty_cache()
 
@@ -886,6 +907,12 @@ def main() -> int:
     print(f"visibility_net resident blocks per SM: {vis_blocks}")
     if vis_blocks < 3:
         raise RuntimeError("visibility_net: fewer than three blocks share an SM")
+    warp_lib = cuda_build.library("warp_corr")
+    warp_blocks = {f"{k} C={c} D={d}": warp_lib.warp_corr_blocks_per_sm(c, d, k == "K1")
+                   for k in ("K1", "K7") for c, d in ((64, 32), (32, 16), (16, 8), (8, 4))}
+    print(f"warp_group_corr (K1) and warp_corr_fwd (K7) resident blocks per SM: {warp_blocks}")
+    if min(warp_blocks.values()) < 4:
+        raise RuntimeError("warp_corr: fewer than four blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1050,6 +1077,12 @@ def main() -> int:
     one_view = check("warp_group_corr", "stage4 V=1",
                      (ref, src[:, :1].contiguous(), src_projs[:, :1].contiguous(),
                       ref_proj, dv4), recorded["warp_group_corr"][-1][1])
+    two_samples = check("warp_group_corr", "stage1 B=2",
+                        k1_two_samples(torch, *recorded["warp_group_corr"][0][0][:5]),
+                        recorded["warp_group_corr"][0][1])
+    print("warp_group_corr (K1) ms per stage: "
+          + " / ".join(f"{r['ms']:.4f}" for r in per_call["warp_group_corr"])
+          + f"; {sum(r['ms'] for r in per_call['warp_group_corr']):.4f} per request [{card}]")
 
     # 7. End to end against the plain versions on the CPU, small request.
     e2e = small_request_errors(torch, model, make_infer_fn)
@@ -1078,7 +1111,8 @@ def main() -> int:
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
-        "per_call": per_call, "k1_one_view": one_view, "e2e_small_errors": e2e,
+        "per_call": per_call, "k1_one_view": one_view, "k1_two_samples": two_samples,
+        "warp_blocks_per_sm": warp_blocks, "e2e_small_errors": e2e,
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
         "training": train,
     }

@@ -3,38 +3,36 @@
     python -m mvsformer_torch.k2_variants [--reps 20] [--rounds 3]
 
 Each alternative is `csrc/vis_net.cu` with a few constants or lines
-substituted, built with the kernels' own nvcc flags: "as built" (16 x 16
-tiles, MF = 3 layer-1 fragments per warp pass, weights read with __ldg,
-three blocks per SM), "MF=2", "weights in smem" (each block copies the
-6,912 packed floats into shared memory: 99 KB a block, two per SM) and
-"16x32 tiles" (131 KB a block, one per SM). Every one is held to
+substituted, built with the kernels' own nvcc flags
+(`mvsformer_torch.kernel_variants`): "as built" (16 x 16 tiles, MF = 3
+layer-1 fragments per warp pass, weights read with __ldg, three blocks
+per SM), "MF=2", "weights in smem" (each block copies the 6,912 packed
+floats into shared memory: 99 KB a block, two per SM) and "16x32 tiles"
+(131 KB a block, one per SM). Every one is held to
 `visibility_net_plain` within 1e-5. Three probes, which compute wrong
 numbers on purpose, say where the time goes: "probe: no split" (A taken
 as hi = x, lo = x, the twelve instructions of each split gone), "probe:
-1xTF32" (one mma per multiply-add step instead of three; the lo halves of
-the split then fall away too) and "probe: no mma" (each 3xTF32 step
+1xTF32" (one mma per multiply-add step instead of three; the lo halves
+of the split then fall away too) and "probe: no mma" (each 3xTF32 step
 replaced by four FFMAs on the same operands, so the loads and splits
-stay). All are timed by CUDA events at the four
-launch shapes of the DTU eval request (4 source views of 144x192 up to
-1152x1536), the main kernel alone (the weights packed once, outside the
-timed launches), in turns over several rounds. Prints the card, and for
-each alternative its ptxas registers and spills, blocks per SM, and its ms
-per stage and per request against the 0.394 ms tensor-core bound, one JSON
-line each.
+stay). All are timed by CUDA events at the four launch shapes of the DTU
+eval request (4 source views of 144x192 up to 1152x1536), the main
+kernel alone (the weights packed once, outside the timed launches), in
+turns over several rounds. Prints the card, and for each alternative its
+ptxas registers, spills and static shared memory, blocks per SM, and its
+ms per stage and per request against the 0.394 ms tensor-core bound, one
+JSON line each.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import re
-import subprocess
 
 import numpy as np
 import torch
 
-from mvsformer_torch.ops import cuda_build
+from mvsformer_torch.kernel_variants import build_all, card, ptxas_summary, time_ms
 from mvsformer_torch.ops.vis_net import launch, pack, visibility_net_plain
 
 STAGES = ((144, 192), (288, 384), (576, 768), (1152, 1536))
@@ -92,48 +90,6 @@ VARIANTS = {
 }
 
 
-def variant_source(subs) -> str:
-    src = (cuda_build.CSRC / "vis_net.cu").read_text()
-    for old, new in subs:
-        if old not in src:
-            raise RuntimeError(f"k2_variants: {old!r} not found in csrc/vis_net.cu")
-        src = src.replace(old, new)
-    return src
-
-
-def build_all() -> dict:
-    """{variant: (ctypes library, ptxas report)}, compiled in parallel; a
-    variant that does not build is reported and left out."""
-    out_dir = cuda_build.BUILD_DIR / "k2_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for i, (name, subs) in enumerate(VARIANTS.items()):
-        src, lib = out_dir / f"vis_net_{i}.cu", out_dir / f"libvis_net_{i}.so"
-        src.write_text(variant_source(subs))
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
-               "-o", str(lib), str(src)]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                       text=True), lib)
-    built = {}
-    for name, (proc, lib) in jobs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            print(f"nvcc failed for the {name!r} variant:\n{stdout}\n{stderr}")
-            continue
-        handle = ctypes.CDLL(str(lib))
-        for fn, argtypes in cuda_build.SIGNATURES["vis_net"].items():
-            getattr(handle, fn).argtypes = argtypes
-            getattr(handle, fn).restype = ctypes.c_int
-        built[name] = (handle, stderr)
-    return built
-
-
-def ptxas_summary(report: str) -> str:
-    regs = re.findall(r"Used (\d+) registers", report)
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)
-    return f"{','.join(regs)} registers, spills {spills}"
-
-
 def weights(rng, dev):
     """K2's weights at the model's scale (as tests/test_torch_cuda.py draws them)."""
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -145,18 +101,6 @@ def weights(rng, dev):
             folds)
 
 
-def time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
@@ -165,10 +109,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("k2_variants: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          check=True, capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}")
-    built = build_all()
+    name_limit = card()
+    print(f"card: {name_limit}")
+    built = build_all("vis_net", VARIANTS)
     rng = np.random.default_rng(0)
     w = weights(rng, "cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -201,7 +144,7 @@ def main() -> int:
             "ms_per_stage_min": [round(t, 4) for t in per_stage],
             "ms_per_stage_all_rounds": [[round(t, 4) for t in ts] for ts in times[name]],
             "ms_per_request": round(total, 4), "share_of_bound": round(BOUND_MS / total, 4),
-            "card": card}))
+            "card": name_limit}))
     return 0
 
 

@@ -33,8 +33,13 @@ def compose_projection(proj: torch.Tensor) -> torch.Tensor:
 
 
 def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch.Tensor:
-    """`src_proj @ inv(ref_proj)` in fp32; [..., 4, 4] each (ref broadcasts)."""
-    inv = torch.linalg.inv(ref_proj.float())
+    """`src_proj @ inv(ref_proj)` in fp32; [..., 4, 4] each (ref broadcasts).
+
+    `inv_ex` skips `inv`'s check for singular matrices, which on a CUDA
+    tensor reads an error flag back to the host and so waits for the
+    device before every warp kernel's launch (as jnp.linalg.inv, it does
+    not raise)."""
+    inv = torch.linalg.inv_ex(ref_proj.float()).inverse
     return _matmul_fp32(src_proj.float(), inv)
 
 

@@ -36,30 +36,67 @@ def dev(monkeypatch):
     return torch.device("cuda")
 
 
-def cams(rng, B, V, H, W):
-    K = np.array([[1.2 * W, 0, W / 2], [0, 1.2 * W, H / 2], [0, 0, 1]], np.float32)
-
-    def full(tx, ang):
+def cams(rng, B, V, H, W, kind="default"):
+    """Composed projections (src [B, V, 4, 4], ref [B, 4, 4]). "default":
+    one reference camera, sources up to 4 units aside and turned by up to
+    0.05 rad; "per_sample": every sample has its own reference camera as
+    well; "rotated": sources turned by 0.3-0.5 rad about the optical axis
+    (and 0.05-0.1 about y) at 2.5 times the focal length, so neighbouring
+    pixels' taps lie 2.2-2.5 pixels apart along x and 0.7 across rows, and
+    about 85% of them fall outside the image."""
+    def full(tx, ang, roll=0.0, ty=0.0, zoom=1.0):
+        K = np.array([[1.2 * W * zoom, 0, W / 2], [0, 1.2 * W * zoom, H / 2], [0, 0, 1]],
+                     np.float32)
         c, s = np.cos(ang), np.sin(ang)
+        cr, sr = np.cos(roll), np.sin(roll)
         P = np.eye(4, dtype=np.float32)
-        P[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
-        P[0, 3] = tx
+        P[:3, :3] = np.array([[cr, -sr, 0], [sr, cr, 0], [0, 0, 1]]) @ np.array(
+            [[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        P[0, 3], P[1, 3] = tx, ty
         out = np.eye(4, dtype=np.float32)
         out[:3] = K @ P[:3]
         return out
 
-    ref = np.stack([full(0.0, 0.0)] * B)
-    src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(-0.05, 0.05))
-                              for _ in range(V)]) for _ in range(B)])
+    if kind == "per_sample":
+        ref = np.stack([full(rng.uniform(-2, 2), rng.uniform(-0.1, 0.1), 0.0,
+                             rng.uniform(-2, 2)) for _ in range(B)])
+    else:
+        ref = np.stack([full(0.0, 0.0)] * B)
+    if kind == "rotated":
+        src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(0.05, 0.1),
+                                       rng.uniform(0.3, 0.5), zoom=2.5) for _ in range(V)])
+                        for _ in range(B)])
+    else:
+        src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(-0.05, 0.05))
+                                  for _ in range(V)]) for _ in range(B)])
     return src, ref
 
 
-@pytest.mark.parametrize("B,V,H,W,C,D", [(1, 4, 36, 48, 64, 32), (2, 1, 37, 45, 8, 4),
-                                         (1, 2, 72, 96, 16, 8)])
-def test_warp_group_corr_matches_plain(dev, B, V, H, W, C, D):
+def depth_hypotheses(rng, B, D, H, W, kind="default"):
+    """[B, D, H, W] sorted per pixel, in 425-900, or ("per_sample") in
+    425-900 for even samples and 500-1000 for odd ones."""
+    return np.stack([np.sort(rng.uniform(*((500, 1000) if kind == "per_sample" and b % 2
+                                           else (425, 900)), (D, H, W)).astype(np.float32),
+                             axis=0) for b in range(B)])
+
+
+# The first three: the earliest shapes. Then every C at its DTU stage's D
+# (64/32, 32/16, 16/8, 8/4) with H*W not a multiple of the kernel's pixel
+# tile (16, 32, 64, 128 pixels); B = 2 with its own cameras and depth range
+# per sample; a strongly rotated source.
+K1_CASES = [(1, 4, 36, 48, 64, 32, "default"), (2, 1, 37, 45, 8, 4, "default"),
+            (1, 2, 72, 96, 16, 8, "default"),
+            (1, 4, 37, 45, 64, 32, "default"), (1, 4, 39, 50, 32, 16, "default"),
+            (1, 4, 41, 57, 16, 8, "default"), (1, 4, 43, 61, 8, 4, "default"),
+            (2, 3, 37, 45, 64, 32, "per_sample"), (2, 3, 43, 61, 8, 4, "per_sample"),
+            (1, 2, 39, 50, 32, 16, "rotated"), (1, 2, 43, 61, 8, 4, "rotated")]
+
+
+@pytest.mark.parametrize("B,V,H,W,C,D,kind", K1_CASES)
+def test_warp_group_corr_matches_plain(dev, B, V, H, W, C, D, kind):
     rng = np.random.default_rng(0)
-    src_p, ref_p = cams(rng, B, V, H, W)
-    dv = np.sort(rng.uniform(425, 900, (B, D, H, W)).astype(np.float32), axis=1)
+    src_p, ref_p = cams(rng, B, V, H, W, kind)
+    dv = depth_hypotheses(rng, B, D, H, W, kind)
     args = [torch.from_numpy(a).to(dev) for a in (
         rng.standard_normal((B, H, W, C)).astype(np.float32),
         rng.standard_normal((B, V, H, W, C)).astype(np.float32), src_p, ref_p, dv)]
@@ -70,6 +107,18 @@ def test_warp_group_corr_matches_plain(dev, B, V, H, W, C, D):
     # Same products summed in another order; coordinates differ in the last bit.
     torch.testing.assert_close(corr, want_corr, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(ent, want_ent, rtol=1e-4, atol=1e-4)
+    if kind == "rotated":  # many taps fall outside the source image
+        invalid = geometry.plane_sweep_coords(args[2][:, 0], args[3], args[4], H, W)[2]
+        assert 0.5 < invalid.float().mean() < 0.95
+
+
+def test_warp_corr_blocks_share_an_sm(dev):
+    """K1 and K7 keep several 256-thread blocks on an SM at every DTU stage."""
+    lib = cuda_build.library("warp_corr")
+    for c, d in ((64, 32), (32, 16), (16, 8), (8, 4)):
+        for entropy in (1, 0):
+            assert lib.warp_corr_blocks_per_sm(c, d, entropy) >= 4
+    assert lib.warp_corr_blocks_per_sm(12, 4, 1) == 0
 
 
 def vis_inputs(rng, dev, N, H, W):
@@ -277,9 +326,9 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
         gsa_attention(q.double(), q.double(), q.double(), 2)
 
 
-def warp_inputs(dev, rng, B, V, H, W, C, D):
-    src_p, ref_p = cams(rng, B, V, H, W)
-    dv = np.sort(rng.uniform(425, 900, (B, D, H, W)).astype(np.float32), axis=1)
+def warp_inputs(dev, rng, B, V, H, W, C, D, kind="default"):
+    src_p, ref_p = cams(rng, B, V, H, W, kind)
+    dv = depth_hypotheses(rng, B, D, H, W, kind)
     return [torch.from_numpy(a).to(dev) for a in (
         rng.standard_normal((B, H, W, C)).astype(np.float32),
         rng.standard_normal((B, V, H, W, C)).astype(np.float32), src_p, ref_p, dv)]
@@ -289,12 +338,20 @@ def warp_inputs(dev, rng, B, V, H, W, C, D):
 # D = 4 and 32, and 48 (K7 has no bound on D, K1 stops at 32).
 WARP_SHAPES = [(1, 4, 36, 48, 64, 32), (2, 1, 37, 45, 8, 4), (1, 2, 19, 23, 16, 8),
                (1, 3, 17, 29, 64, 4), (1, 1, 13, 11, 32, 48)]
+# K7 alone: every C at its stage's D with H*W not a multiple of the pixel
+# tile, D = 48 (one and a half chunks at C = 64, twelve at C = 8), B = 2
+# with its own cameras and depths per sample, a strongly rotated source.
+K7_CASES = [(1, 4, 37, 45, 64, 32, "default"), (1, 4, 39, 50, 32, 16, "default"),
+            (1, 4, 41, 57, 16, 8, "default"), (1, 4, 43, 61, 8, 4, "default"),
+            (1, 2, 21, 19, 64, 48, "default"), (2, 2, 23, 29, 8, 48, "default"),
+            (2, 3, 37, 45, 32, 16, "per_sample"), (1, 2, 41, 57, 16, 8, "rotated")]
 
 
-@pytest.mark.parametrize("B,V,H,W,C,D", WARP_SHAPES)
-def test_warp_corr_fwd_matches_plain(dev, B, V, H, W, C, D):
+@pytest.mark.parametrize("B,V,H,W,C,D,kind",
+                         [(*shape, "default") for shape in WARP_SHAPES] + K7_CASES)
+def test_warp_corr_fwd_matches_plain(dev, B, V, H, W, C, D, kind):
     rng = np.random.default_rng(7)
-    args = warp_inputs(dev, rng, B, V, H, W, C, D)
+    args = warp_inputs(dev, rng, B, V, H, W, C, D, kind)
     before = cuda_build.LAUNCHES["warp_corr_fwd"]
     corr = warp_corr_fwd(*args, groups=8)
     assert cuda_build.LAUNCHES["warp_corr_fwd"] == before + 1

@@ -213,3 +213,57 @@ def test_bridge_round_trip_gives_back_the_flax_tree(both):
         np.testing.assert_array_equal(got_p[path], leaf, err_msg=str(path))
     for path, leaf in want_s:
         np.testing.assert_array_equal(got_s[path], leaf, err_msg=str(path))
+
+
+def make_batch_of_two(rng):
+    """make_batch at B = 2, the second sample with cameras and a depth range
+    of its own: views 1.5 units apart along x and 0.5 along y, focal 90, and
+    depths 500-1000."""
+    imgs, projs, dv = make_batch(rng, B=2)
+    for s, scale in zip(range(1, 5), (1 / 8, 1 / 4, 1 / 2, 1.0)):
+        cams = projs[f"stage{s}"]
+        for v in range(cams.shape[1]):
+            cams[1, v, 0, 0, 3] = v * 1.5
+            cams[1, v, 0, 1, 3] = v * 0.5
+            cams[1, v, 1, 0, 0] = cams[1, v, 1, 1, 1] = 90.0 * scale
+    dv[1] = np.linspace(500, 1000, dv.shape[1], dtype=np.float32)
+    return imgs, projs, dv
+
+
+@pytest.fixture(scope="module")
+def batch_of_two(both):
+    """The eval forward at B = 2 on both sides (one JAX forward), with the
+    weights of `both`; the first sample is `both`'s batch."""
+    imgs, projs, dv = make_batch_of_two(np.random.default_rng(0))
+    np.testing.assert_array_equal(imgs[:1], both["batch"][0])
+    jmodel = jax_build_model(JaxModelConfig(**CFG, fused_enc_head=False, fused_fpn_final=False,
+                                            fused_fpn_l2=False), dtype=jnp.float32)
+    jout = jax.jit(lambda v, i, p, d: jmodel.apply(v, i, p, d, training=False, tmp=TMPS))(
+        {"params": both["params"], "batch_stats": both["stats"]},
+        jnp.asarray(imgs), jax.tree.map(jnp.asarray, projs), jnp.asarray(dv))
+    with torch.inference_mode():
+        tout = both["model"](torch.from_numpy(imgs),
+                             {k: torch.from_numpy(v) for k, v in projs.items()},
+                             torch.from_numpy(dv), tmp=TMPS)
+    return dict(jout=jax.tree.map(np.asarray, jout), tout=tout)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4, "refined"])
+def test_batch_of_two_matches_jax(batch_of_two, stage):
+    """Each sample is warped with its own cameras and depth hypotheses."""
+    j, t = batch_of_two["jout"], batch_of_two["tout"]
+    if stage == "refined":
+        pairs = [("refined_depth", DEPTH_ATOL), ("photometric_confidence", CONF_ATOL)]
+    else:
+        j, t = j[f"stage{stage}"], t[f"stage{stage}"]
+        pairs = [("depth", DEPTH_ATOL), ("photometric_confidence", CONF_ATOL)]
+        assert float(t["depth_values"][1].min()) > float(t["depth_values"][0].min())
+    for key, atol in pairs:
+        np.testing.assert_allclose(t[key].numpy(), j[key], rtol=0, atol=atol, err_msg=key)
+
+
+def test_batch_of_two_keeps_the_first_sample(both, batch_of_two):
+    """The first sample of the B = 2 forward is the B = 1 forward."""
+    for key, atol in (("refined_depth", DEPTH_ATOL), ("photometric_confidence", CONF_ATOL)):
+        np.testing.assert_allclose(batch_of_two["tout"][key][:1].numpy(),
+                                   both["tout"][key].numpy(), rtol=0, atol=atol, err_msg=key)

@@ -184,3 +184,45 @@ def test_cost_reg_unets_match_flax(rng, three_d):
     with torch.no_grad():
         got = mod(torch.from_numpy(np.ascontiguousarray(np.moveaxis(x, -1, 1))))
     close(got, want, atol=1e-4)
+
+
+def test_cost_reg_net_trains_as_flax(rng):
+    """Train-mode CostRegNet at D = 16 (stages 1-2 of the DTU config run it)
+    against flax with training=True, on a batch of two: the batch-statistics
+    output, the gradients of a random cotangent in the input and in every
+    weight, and the running statistics the forward leaves."""
+    x = rng.standard_normal((2, 16, 8, 16, 8)).astype(np.float32)
+    jmod = jcostreg.CostRegNet(dtype=jnp.float32)
+    v = init(jmod, rng, x, training=False)
+    ct = rng.standard_normal((2, 16, 8, 16, 1)).astype(np.float32)
+
+    def loss(params, xx):
+        out, upd = jmod.apply({"params": params, "batch_stats": v["batch_stats"]}, xx,
+                              training=True, mutable=["batch_stats"])
+        return (out * ct).sum(), (out, upd["batch_stats"])
+
+    (_, (want, new_stats)), (gparams, gx) = jax.jit(
+        jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(v["params"], jnp.asarray(x))
+    mod = load(costreg.CostRegNet(8, 8), cw.cost_reg_state(v["params"], v["batch_stats"], False))
+    mod.train()
+    xt = nchw(x).requires_grad_()
+    got = mod(xt)
+    (got * nchw(ct)).sum().backward()
+    # fp32 sums of 3x3x3 convs and batch statistics over 2x16x8x16 voxels,
+    # in another order on each side (outputs and input gradients of scale ~4).
+    close(got, want, atol=1e-4)
+    close(xt.grad, gx, atol=1e-4)
+    want_grads = cw.cost_reg_state(jax.tree.map(np.asarray, gparams), v["batch_stats"], False)
+    named = dict(mod.named_parameters())
+    assert set(named) <= set(want_grads)
+    for name, p in named.items():
+        w = np.asarray(want_grads[name])
+        # A weight's gradient sums over every voxel: bound it by its scale.
+        np.testing.assert_allclose(p.grad.numpy(), w, rtol=0,
+                                   atol=1e-5 * max(1.0, float(np.abs(w).max())), err_msg=name)
+    want_stats = cw.cost_reg_state(v["params"], jax.tree.map(np.asarray, new_stats), False)
+    buffers = {k: b for k, b in mod.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    assert buffers
+    for name, b in buffers.items():
+        np.testing.assert_allclose(b.numpy(), np.asarray(want_stats[name]), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)

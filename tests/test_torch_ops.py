@@ -17,7 +17,7 @@ from mvsformer_tpu.ops import hypotheses as jhyp
 from mvsformer_tpu.ops import regression as jreg
 from mvsformer_tpu.ops import resize as jres
 
-from mvsformer_torch.ops import correlation, geometry, hypotheses, regression, resize
+from mvsformer_torch.ops import correlation, geometry, hypotheses, regression, resize, warp_corr
 
 torch.set_num_threads(2)
 
@@ -69,6 +69,35 @@ def test_homo_warp_matches_jax(rng, per_pixel_depth):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
     # The mask may differ only where a coordinate sits within rounding of a border.
     assert (got_mask.numpy() != np.asarray(want_mask)).mean() < 1e-3
+
+
+@pytest.mark.parametrize("kind", ["zero_row", "repeated_row"])
+def test_singular_reference_camera_is_non_finite_as_in_jax(kind):
+    """A singular reference projection does not raise: the relative
+    projection, as the plain version and the warp wrappers' `relative_rows`
+    take it, is non-finite exactly where jnp.linalg.inv makes JAX's so."""
+    K = np.array([[200.0, 0, 32.0, 0], [0, 200.0, 24.0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                 np.float32)
+    ref = K.copy()
+    if kind == "zero_row":
+        ref[2] = 0.0
+    else:
+        ref[2] = ref[0]
+    src, _ = random_cameras(np.random.default_rng(3), 1)
+    H, W = 6, 8
+    depth = np.linspace(400, 900, 3, dtype=np.float32)[None]
+    want_rel = np.asarray(jnp.matmul(jnp.asarray(src), jnp.linalg.inv(jnp.asarray(ref[None])),
+                                     precision=jax.lax.Precision.HIGHEST))
+    got_rel = warp_corr.relative_rows(T(src)[:, None], T(ref[None]))[:, 0].numpy()
+    assert not np.isfinite(want_rel[:, :3]).all()
+    np.testing.assert_array_equal(np.isfinite(got_rel), np.isfinite(want_rel[:, :3]))
+    got = geometry.plane_sweep_coords(T(src), T(ref[None]), T(depth), H, W)
+    want = jgeo.plane_sweep_coords(jnp.asarray(src), jnp.asarray(ref[None]), jnp.asarray(depth),
+                                   H, W)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.isfinite(g.numpy()), np.isfinite(np.asarray(w)))
+        np.testing.assert_allclose(g.numpy()[np.isfinite(g.numpy())],
+                                   np.asarray(w)[np.isfinite(np.asarray(w))], rtol=1e-5)
 
 
 def test_bilinear_sample_matches_jax(rng):
