@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    source, all at once) and print the build time, each kernel's ptxas
    registers and spills, K5's resident blocks per SM at each level (its
    design needs two), K2's (its design needs three) and K1's and K7's at
-   each DTU stage (their design needs four).
+   each DTU stage (their design needs four), and K8's at each stage of the
+   training step (three or more).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -57,8 +58,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    device's idle share and top kernels), and one records the tensors it
    feeds K7 and K8.
 9. With TF32 off, hold K7 and K8 against their plain versions on the card
-   at each of those 8 + 8 launches, and time both. Print K7's time per
-   stage.
+   at each of those 8 + 8 launches, and time both; hold K8 once more at
+   stage 1 with every source camera zoomed 3 times, where neighbouring
+   pixels' taps lie 3 source pixels apart and a pixel's tap square moves at
+   almost every depth, so its sums over depths hardly merge. Print K7's and
+   K8's time per stage.
 10. Run one fp32 training step (the __graft_entry__ request's cameras,
    B=2 as 2 micro-batches, 3 views, 128x128, 192 depths, drop path 0, no
    warmup) on the card and, with the same weights and batch, on the CPU,
@@ -134,9 +138,10 @@ TRAIN_B, TRAIN_MICRO, TRAIN_V, TRAIN_H, TRAIN_W = 8, 4, 5, 512, 640
 N_STEPS = 3
 # K7: K1's kernel body without the entropy; the same bound as K1's corr.
 K7_RTOL_OF_SCALE = 1e-4   # of max(1, max |corr|)
-# K8: fp32 atomics sum each dsrc entry's up to 4*D terms, and each dref
-#     entry's V*D terms, in an order that varies from run to run; the plain
-#     version sums the same products through autograd's scatter.
+# K8: each dsrc entry sums up to 4*D terms and each dref entry V*D, in
+#     registers and then by fp32 vector reductions in an order that varies
+#     from run to run; the plain version sums the same products through
+#     autograd's scatter.
 K8_RTOL_OF_SCALE = 1e-5   # per output (dref, dsrc), of its max |value|
 # One training step on the card against the CPU, fp32 with TF32 off (the
 # kernels take fp32 only). A tiny randomly initialised network amplifies
@@ -309,6 +314,18 @@ def k8_cost(args, kwargs):
     # again (4 taps x C FMAs), C FMAs into dref, the C products ref * dcex
     # once, then per tap and channel a product and an add into dsrc.
     return nbytes, b * v * d * hw * (30 + 8 * c + 2 * c + c + 8 * c + g)
+
+
+def k8_zoomed(torch, args):
+    """K8's inputs with every source camera zoomed 3 times about the image
+    centre: neighbouring pixels' taps lie 3 source pixels apart, and only
+    the middle third of the reference view lands in the source."""
+    ref, src, src_projs, *rest = args
+    h, w = src.shape[2:4]
+    zoom = torch.eye(4, dtype=src_projs.dtype, device=src_projs.device)
+    zoom[0, 0] = zoom[1, 1] = 3.0
+    zoom[0, 2], zoom[1, 2] = -float(w - 1), -float(h - 1)
+    return (ref, src, (zoom @ src_projs).contiguous(), *rest)
 
 
 def bound_ms(nbytes, flops, tensor_macs=0):
@@ -825,11 +842,18 @@ def training_phase(torch, card, eval_kernels):
                 for name, spec in specs.items()}
     kernels = [kernel_row(name, spec, per_call[name], launches.get(name, 0))
                for name, spec in specs.items()]
-    k7 = [r["ms"] for r in per_call["warp_corr_fwd"]]
-    print("warp_corr_fwd (K7) ms per stage, "
-          + ", ".join(f"micro-batch {m + 1}: " + " / ".join(
-              f"{t:.4f}" for t in k7[m * nstages:(m + 1) * nstages]) for m in range(n_micro))
-          + f"; {sum(k7):.4f} per step [{card}]")
+    # K8 at stage 1 of micro-batch 1 (its last launch there) with zoomed sources.
+    args, kwargs = recorded["warp_corr_bwd"][nstages - 1]
+    k8_zoom = check_kernel(torch, card, "warp_corr_bwd", specs["warp_corr_bwd"],
+                           "micro1 stage1 zoomed 3x", k8_zoomed(torch, args), kwargs)
+    for name, kernel in (("warp_corr_fwd", "K7"), ("warp_corr_bwd", "K8")):
+        ms = [r["ms"] for r in per_call[name]]
+        if name == "warp_corr_bwd":  # the backward meets the stages in reverse
+            ms = [t for m in range(n_micro) for t in ms[m * nstages:(m + 1) * nstages][::-1]]
+        print(f"{name} ({kernel}) ms per stage, "
+              + ", ".join(f"micro-batch {m + 1}: " + " / ".join(
+                  f"{t:.4f}" for t in ms[m * nstages:(m + 1) * nstages]) for m in range(n_micro))
+              + f"; {sum(ms):.4f} per step [{card}]")
     del recorded, model, step, batch
     torch.cuda.empty_cache()
 
@@ -865,7 +889,7 @@ def training_phase(torch, card, eval_kernels):
             "train_steps_per_s": 1 / mean_s, "peak_memory_gb": peak_gb, "launches": launches,
             "metrics": metrics, "layers_ms": layers, "per_call": per_call,
             "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
-            "card_vs_cpu_step": step_errs,
+            "card_vs_cpu_step": step_errs, "k8_zoomed": k8_zoom,
             "shape": {"B": TRAIN_B, "micro": TRAIN_MICRO, "V": TRAIN_V, "H": TRAIN_H,
                       "W": TRAIN_W, "depths": NDEPTH_FULL}}
 
@@ -913,6 +937,12 @@ def main() -> int:
     print(f"warp_group_corr (K1) and warp_corr_fwd (K7) resident blocks per SM: {warp_blocks}")
     if min(warp_blocks.values()) < 4:
         raise RuntimeError("warp_corr: fewer than four blocks share an SM")
+    bwd_lib = cuda_build.library("warp_corr_bwd")
+    bwd_blocks = {f"C={c} D={d}": bwd_lib.warp_corr_bwd_blocks_per_sm(c, d)
+                  for c, d in ((64, 32), (32, 16), (16, 8), (8, 4))}
+    print(f"warp_corr_bwd (K8) resident blocks per SM: {bwd_blocks}")
+    if min(bwd_blocks.values()) < 3:
+        raise RuntimeError("warp_corr_bwd: fewer than three blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1112,7 +1142,8 @@ def main() -> int:
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
         "per_call": per_call, "k1_one_view": one_view, "k1_two_samples": two_samples,
-        "warp_blocks_per_sm": warp_blocks, "e2e_small_errors": e2e,
+        "warp_blocks_per_sm": warp_blocks, "k8_blocks_per_sm": bwd_blocks,
+        "e2e_small_errors": e2e,
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
         "training": train,
     }

@@ -58,6 +58,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "warp_taps.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -81,55 +83,6 @@ size_t smem_bytes(int C, int D, bool entropy) {
   const size_t floats =
       (size_t)8 * dc * tp + (size_t)G * kGroupStride + (entropy ? (size_t)D * tp : 0);
   return floats * sizeof(float);
-}
-
-struct Taps {
-  float4 w;  // bilinear weights of (x0, y0), (x1, y0), (x0, y1), (x1, y1); 0 if invalid
-  int4 o;    // their source pixel indices, clamped into the image
-};
-
-// Coordinates use explicitly rounded multiplies and adds (no FMA
-// contraction) in the plain version's order, so px, py match it bit for
-// bit: the correlation is steep in px where features change fast.
-__device__ __forceinline__ float3 ray(const float* M, int p, int W) {
-  const int yi = p / W;
-  const float fx = (float)(p - yi * W);
-  const float fy = (float)yi;
-  return make_float3(__fadd_rn(__fadd_rn(__fmul_rn(M[0], fx), __fmul_rn(M[1], fy)), M[2]),
-                     __fadd_rn(__fadd_rn(__fmul_rn(M[4], fx), __fmul_rn(M[5], fy)), M[6]),
-                     __fadd_rn(__fadd_rn(__fmul_rn(M[8], fx), __fmul_rn(M[9], fy)), M[10]));
-}
-
-__device__ __forceinline__ Taps taps_at(const float* M, float3 r, float depth, int W, int H) {
-  const float X = __fadd_rn(__fmul_rn(r.x, depth), M[3]);
-  const float Y = __fadd_rn(__fmul_rn(r.y, depth), M[7]);
-  const float Z = __fadd_rn(__fmul_rn(r.z, depth), M[11]);
-  const float sx = __fdiv_rn(X, __fadd_rn(Z, 1e-6f));
-  const float sy = __fdiv_rn(Y, __fadd_rn(Z, 1e-6f));
-  const float wmax = (float)(W - 1);
-  const float hmax = (float)(H - 1);
-  const float x0 = floorf(sx);
-  const float y0 = floorf(sy);
-  const float wx = sx - x0;
-  const float wy = sy - y0;
-  const float x1 = x0 + 1.0f;
-  const float y1 = y0 + 1.0f;
-  // Validity is tested on the float coordinates, before any conversion to
-  // int, so far-away projections never overflow an index.
-  const float vx0 = (x0 >= 0.0f && x0 <= wmax) ? 1.0f : 0.0f;
-  const float vx1 = (x1 >= 0.0f && x1 <= wmax) ? 1.0f : 0.0f;
-  const float vy0 = (y0 >= 0.0f && y0 <= hmax) ? 1.0f : 0.0f;
-  const float vy1 = (y1 >= 0.0f && y1 <= hmax) ? 1.0f : 0.0f;
-  Taps t;
-  t.w = make_float4((1.0f - wx) * (1.0f - wy) * (vx0 * vy0), wx * (1.0f - wy) * (vx1 * vy0),
-                    (1.0f - wx) * wy * (vx0 * vy1), wx * wy * (vx1 * vy1));
-  // Invalid taps read a clamped in-image address with weight 0.
-  const int ix0 = (int)fminf(fmaxf(x0, 0.0f), wmax);
-  const int ix1 = (int)fminf(fmaxf(x1, 0.0f), wmax);
-  const int iy0 = (int)fminf(fmaxf(y0, 0.0f), hmax);
-  const int iy1 = (int)fminf(fmaxf(y1, 0.0f), hmax);
-  t.o = make_int4(iy0 * W + ix0, iy0 * W + ix1, iy1 * W + ix0, iy1 * W + ix1);
-  return t;
 }
 
 template <int C, bool kEntropy>

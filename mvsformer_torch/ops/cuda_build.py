@@ -42,7 +42,8 @@ SIGNATURES = {
     "warp_corr": {"warp_group_corr_f32": [_P] * 6 + [_I] * 7 + [_P],
                   "warp_corr_fwd_f32": [_P] * 5 + [_I] * 7 + [_P],
                   "warp_corr_blocks_per_sm": [_I] * 3},
-    "warp_corr_bwd": {"warp_corr_bwd_f32": [_P] * 7 + [_I] * 7 + [_P]},
+    "warp_corr_bwd": {"warp_corr_bwd_f32": [_P] * 7 + [_I] * 7 + [_P],
+                      "warp_corr_bwd_blocks_per_sm": [_I] * 2},
     "vis_net": {"visibility_net_pack_f32": [_P] * 13,
                 "visibility_net_f32": [_P] * 3 + [_I] * 3 + [_P],
                 "visibility_net_packed_floats": [],

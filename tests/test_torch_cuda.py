@@ -43,7 +43,9 @@ def cams(rng, B, V, H, W, kind="default"):
     well; "rotated": sources turned by 0.3-0.5 rad about the optical axis
     (and 0.05-0.1 about y) at 2.5 times the focal length, so neighbouring
     pixels' taps lie 2.2-2.5 pixels apart along x and 0.7 across rows, and
-    about 85% of them fall outside the image."""
+    about 85% of them fall outside the image; "zoomed": sources at 3 times
+    the focal length, so neighbouring pixels' taps lie 3 pixels apart and
+    only the middle third of the reference view lands in the source."""
     def full(tx, ang, roll=0.0, ty=0.0, zoom=1.0):
         K = np.array([[1.2 * W * zoom, 0, W / 2], [0, 1.2 * W * zoom, H / 2], [0, 0, 1]],
                      np.float32)
@@ -66,6 +68,9 @@ def cams(rng, B, V, H, W, kind="default"):
         src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(0.05, 0.1),
                                        rng.uniform(0.3, 0.5), zoom=2.5) for _ in range(V)])
                         for _ in range(B)])
+    elif kind == "zoomed":
+        src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(-0.05, 0.05), zoom=3.0)
+                                  for _ in range(V)]) for _ in range(B)])
     else:
         src = np.stack([np.stack([full(rng.uniform(-4, 4), rng.uniform(-0.05, 0.05))
                                   for _ in range(V)]) for _ in range(B)])
@@ -366,10 +371,25 @@ def test_warp_corr_fwd_matches_plain(dev, B, V, H, W, C, D, kind):
     assert 0 < invalid.float().mean() < 1
 
 
-@pytest.mark.parametrize("B,V,H,W,C,D", WARP_SHAPES)
-def test_warp_corr_bwd_matches_plain(dev, B, V, H, W, C, D):
+# K8 alone: every C at its stage's D with H*W off the block's run of pixels
+# (16, 32, 64, 128), B = 2 with its own cameras and depths per sample, D =
+# 48 (one and a half depth chunks at C = 64, twelve at C = 8), and rotated
+# and zoomed sources, whose neighbouring pixels' taps lie 2-3 source pixels
+# apart, so each tap square holds for few depths.
+K8_CASES = [(1, 4, 37, 45, 64, 32, "default"), (1, 4, 39, 50, 32, 16, "default"),
+            (1, 4, 41, 57, 16, 8, "default"), (1, 4, 43, 61, 8, 4, "default"),
+            (2, 3, 37, 45, 32, 16, "per_sample"), (2, 3, 43, 61, 8, 4, "per_sample"),
+            (1, 2, 21, 19, 64, 48, "default"), (2, 2, 23, 29, 8, 48, "default"),
+            (1, 2, 39, 50, 32, 16, "rotated"), (1, 2, 43, 61, 8, 4, "rotated"),
+            (1, 2, 37, 45, 64, 32, "zoomed"), (1, 2, 39, 50, 32, 16, "zoomed"),
+            (1, 2, 41, 57, 16, 8, "zoomed"), (1, 2, 43, 61, 8, 4, "zoomed")]
+
+
+@pytest.mark.parametrize("B,V,H,W,C,D,kind",
+                         [(*shape, "default") for shape in WARP_SHAPES] + K8_CASES)
+def test_warp_corr_bwd_matches_plain(dev, B, V, H, W, C, D, kind):
     rng = np.random.default_rng(8)
-    args = warp_inputs(dev, rng, B, V, H, W, C, D)
+    args = warp_inputs(dev, rng, B, V, H, W, C, D, kind)
     dcorr = torch.from_numpy(rng.standard_normal((B, V, 8, D, H, W)).astype(np.float32)).to(dev)
     before = cuda_build.LAUNCHES["warp_corr_bwd"]
     dref, dsrc = warp_corr_bwd(*args, dcorr, groups=8)

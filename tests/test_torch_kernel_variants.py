@@ -1,7 +1,8 @@
 """The kernel-variant scripts' substitutions against the sources they edit.
 
-`k1_variants` and `k2_variants` time copies of `csrc/warp_corr.cu` and
-`csrc/vis_net.cu` with lines substituted; they run only on a GPU. Here,
+`k1_variants`, `k2_variants` and `k8_variants` time copies of
+`csrc/warp_corr.cu`, `csrc/vis_net.cu` and `csrc/warp_corr_bwd.cu` with
+lines substituted; they run only on a GPU. Here,
 on the CPU, every variant's lines must still be found in today's source
 (else the script raises before it builds anything) and must change it,
 and the ptxas report's parser must name the kernels as the scripts print
@@ -10,12 +11,13 @@ them.
 
 import pytest
 
-from mvsformer_torch import k1_variants, k2_variants
+from mvsformer_torch import k1_variants, k2_variants, k8_variants
 from mvsformer_torch.kernel_variants import ptxas_summary, variant_source
 from mvsformer_torch.ops import cuda_build
 
 CASES = [("warp_corr", name, subs) for name, subs in k1_variants.VARIANTS.items()] + \
-        [("vis_net", name, subs) for name, subs in k2_variants.VARIANTS.items()]
+        [("vis_net", name, subs) for name, subs in k2_variants.VARIANTS.items()] + \
+        [("warp_corr_bwd", name, subs) for name, subs in k8_variants.VARIANTS.items()]
 
 
 @pytest.mark.parametrize("lib,name,subs", CASES, ids=[f"{c[0]}: {c[1]}" for c in CASES])

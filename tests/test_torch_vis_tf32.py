@@ -106,12 +106,14 @@ def test_lib_path_follows_the_shared_headers(tmp_path, monkeypatch):
     shutil.copytree(cuda_build.CSRC, csrc)
     monkeypatch.setattr(cuda_build, "CSRC", csrc)
     headers = sorted(csrc.glob("*.cuh"))
-    assert [h.name for h in headers] == ["tf32_mma.cuh"]
+    assert [h.name for h in headers] == ["tf32_mma.cuh", "warp_taps.cuh"]
     before = {name: cuda_build.lib_path(name) for name in cuda_build.SIGNATURES}
     assert {name: cuda_build.lib_path(name) for name in cuda_build.SIGNATURES} == before
-    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
-    after = {name: cuda_build.lib_path(name) for name in cuda_build.SIGNATURES}
-    assert all(after[name] != before[name] for name in before)
+    for header in headers:
+        header.write_bytes(header.read_bytes() + b"\n")
+        after = {name: cuda_build.lib_path(name) for name in cuda_build.SIGNATURES}
+        assert all(after[name] != before[name] for name in before)
+        before = after
     (csrc / "vis_net.cu").write_bytes((csrc / "vis_net.cu").read_bytes() + b"\n")
     assert cuda_build.lib_path("vis_net") != after["vis_net"]
     assert cuda_build.lib_path("fpn_level") == after["fpn_level"]

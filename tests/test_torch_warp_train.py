@@ -24,6 +24,7 @@ from mvsformer_tpu.ops import correlation as jcorr
 from mvsformer_tpu.ops import geometry as jgeo
 from mvsformer_tpu.ops.pallas import warp_corr as jwarp
 from mvsformer_tpu.ops.pallas.warp_corr_bwd import plane_sweep_group_corr_bwd
+from mvsformer_tpu.ops.pallas.warp_corr_train import _bwd as fused_warp_corr_train_bwd
 
 from mvsformer_torch.ops.correlation import entropy_over_depth
 from mvsformer_torch.ops.warp_corr import warp_corr_fwd, warp_corr_fwd_plain
@@ -161,6 +162,35 @@ def test_warp_corr_bwd_plain_matches_pallas_interpret(rng):
             band_rows=16, band_cols=256)
     np.testing.assert_allclose(dref.numpy(), np.asarray(want_dref), rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(dsrc[:, 0].numpy(), np.asarray(want_dsrc), rtol=1e-3, atol=1e-3)
+
+
+def test_warp_corr_bwd_zoomed_matches_jax_vjp(rng):
+    """Sources zoomed 3 times about the image centre, as chip_smoke.py's
+    zoomed K8 check has them (neighbouring pixels' taps 3 source pixels
+    apart): K8's plain version is the JAX custom_vjp's native_bwd=False
+    backward (jax.vjp of the XLA path), summed over views for ref. Not the
+    Pallas kernel, whose band clips there."""
+    B, V, H, W, D = 2, 2, 24, 40, 3
+    ref, src, sp, rp, dv = setup(rng, B=B, V=V, H=H, W=W, D=D, C=16)
+    zoom = np.eye(4, dtype=np.float32)
+    zoom[0, 0] = zoom[1, 1] = 3.0
+    zoom[0, 2], zoom[1, 2] = -(W - 1), -(H - 1)
+    sp = np.ascontiguousarray(zoom @ sp)
+    dcorr = rng.standard_normal((B, V, G, D, H, W)).astype(np.float32)
+    dref, dsrc = warp_corr_bwd(T(ref), T(src), T(sp), T(rp), T(dv), T(dcorr), G)
+    want_dref = np.zeros_like(ref)
+    for v in range(V):
+        invalid = jgeo.homo_warp(jnp.asarray(src[:, v]), jnp.asarray(sp[:, v]),
+                                 jnp.asarray(rp), jnp.asarray(dv))[1]
+        assert 0.3 < np.asarray(invalid).mean() < 0.9  # the middle third lands in the source
+        want = fused_warp_corr_train_bwd(
+            G, 12, 1, False, tuple(jnp.asarray(a) for a in (ref, src[:, v], sp[:, v], rp, dv)),
+            jnp.asarray(dcorr[:, v].transpose(0, 2, 3, 4, 1)))
+        want_dref += np.asarray(want[0])
+        # fp32 sums of the same products in another order, as above.
+        np.testing.assert_allclose(dsrc[:, v].numpy(), np.asarray(want[1]), rtol=1e-5,
+                                   atol=5e-5, err_msg=f"dsrc view {v}")
+    np.testing.assert_allclose(dref.numpy(), want_dref, rtol=1e-5, atol=5e-5)
 
 
 def test_warp_corr_bwd_cpu_wrapper_is_the_plain_version(rng):
