@@ -10,8 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    source, all at once) and print the build time, each kernel's ptxas
    registers and spills, K5's resident blocks per SM at each level (its
    design needs two), K2's (its design needs three) and K1's and K7's at
-   each DTU stage (their design needs four), and K8's at each stage of the
-   training step (three or more).
+   each DTU stage (their design needs four), K8's at each stage of the
+   training step (three or more) and K4's (its design needs two).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -79,8 +79,9 @@ multiply-add, which keeps fp32's accuracy), so their bounds have a third
 term: 3 x 2 x those multiply-adds over 494.7 TFLOP/s (dense TF32), with
 their other operations over 67 TFLOP/s; their lines name the term that
 binds ("bytes", "tensor" or "operations") and the kernel's share of the
-bound. A kernel's entry in the kernels line sums the bounds of its
-launches, and names the tensor term "operations".
+bound. K4 runs all three of its convs that way. A kernel's
+entry in the kernels line sums the bounds of its launches, and names the
+tensor term "operations".
 """
 
 from __future__ import annotations
@@ -266,9 +267,10 @@ def k4_cost(args, kwargs):
     n, _, h, w = args[0].shape
     ho, wo = (h + 1) // 2, (w + 1) // 2
     nbytes = 4 * (n * 3 * h * w + n * 8 * h * w + n * 16 * ho * wo + 6040)
-    # multiply-adds of the three convs, then BN (2) and lrelu (1) per output.
+    # Outside the tensor cores: BN (2) and lrelu (1) per output of the
+    # three layers. On them: the three convs' multiply-adds.
     macs = n * h * w * (7 * 7 * 3 * 8 + 5 * 5 * 8 * 8) + n * ho * wo * 5 * 5 * 8 * 16
-    return nbytes, 2 * macs + 3 * (2 * n * 8 * h * w + n * 16 * ho * wo)
+    return nbytes, 3 * (2 * n * 8 * h * w + n * 16 * ho * wo), macs
 
 
 def k5_cost(args, kwargs):
@@ -331,7 +333,7 @@ def k8_zoomed(torch, args):
 def bound_ms(nbytes, flops, tensor_macs=0):
     """(least ms, the term that binds): bytes over the memory rate, fp32
     operations over the CUDA cores' rate and, for a kernel on the tensor
-    cores (K2, K5), its 3xTF32 products over the dense TF32 rate."""
+    cores (K2, K4, K5), its 3xTF32 products over the dense TF32 rate."""
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOPS_PER_S,
              "tensor": TF32_PRODUCTS * 2 * tensor_macs / TF32_FLOPS_PER_S}
     by = max(times, key=times.get)  # ties go to bytes, then operations
@@ -943,6 +945,10 @@ def main() -> int:
     print(f"warp_corr_bwd (K8) resident blocks per SM: {bwd_blocks}")
     if min(bwd_blocks.values()) < 3:
         raise RuntimeError("warp_corr_bwd: fewer than three blocks share an SM")
+    head_blocks = cuda_build.library("encoder_head").encoder_head_blocks_per_sm()
+    print(f"encoder_head (K4) resident blocks per SM: {head_blocks}")
+    if head_blocks < 2:
+        raise RuntimeError("encoder_head: fewer than two blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1137,7 +1143,7 @@ def main() -> int:
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
-        "k2_blocks_per_sm": vis_blocks,
+        "k2_blocks_per_sm": vis_blocks, "k4_blocks_per_sm": head_blocks,
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,

@@ -1,4 +1,4 @@
-"""What the kernel-variant scripts (`k1_variants`, `k2_variants`) share.
+"""What the kernel-variant scripts (`k1_variants`, `k2_variants`, ...) share.
 
 A variant is a kernel source in `csrc/` with a few lines substituted. Each
 script names its variants; this module applies the substitutions, builds
@@ -11,6 +11,7 @@ without a GPU.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import re
 import subprocess
 
@@ -19,10 +20,11 @@ import torch
 from mvsformer_torch.ops import cuda_build
 
 
-def variant_source(lib: str, subs) -> str:
-    """`csrc/<lib>.cu` with each (old, new) of `subs` applied; raises if an
-    old line is not in it, so a variant cannot silently time the source."""
-    src = (cuda_build.CSRC / f"{lib}.cu").read_text()
+def variant_source(lib: str, subs, csrc=cuda_build.CSRC) -> str:
+    """`<csrc>/<lib>.cu` (the port's `csrc/` by default) with each (old,
+    new) of `subs` applied; raises if an old line is not in it, so a variant
+    cannot silently time the source."""
+    src = (csrc / f"{lib}.cu").read_text()
     for old, new in subs:
         if old not in src:
             raise RuntimeError(f"{old!r} not found in csrc/{lib}.cu")
@@ -30,17 +32,21 @@ def variant_source(lib: str, subs) -> str:
     return src
 
 
-def build_all(lib: str, variants: dict) -> dict:
-    """{variant: (ctypes library, ptxas report)} for {variant: subs}, all
-    compiled at once; a variant that does not build is reported and left
-    out."""
+def build_all(lib: str, variants: dict, csrc=cuda_build.CSRC) -> dict:
+    """{variant: (ctypes library, ptxas report)} for {variant: subs} of
+    `<csrc>/<lib>.cu`, all compiled at once; a variant that does not build
+    is reported and left out. The functions of `cuda_build.SIGNATURES[lib]`
+    that a library exports are bound (an earlier tree's source may export
+    fewer)."""
     out_dir = cuda_build.BUILD_DIR / f"{lib}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for i, (name, subs) in enumerate(variants.items()):
-        src, so = out_dir / f"{lib}_{i}.cu", out_dir / f"lib{lib}_{i}.so"
-        src.write_text(variant_source(lib, subs))
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+    for name, subs in variants.items():
+        text = variant_source(lib, subs, csrc)
+        tag = hashlib.sha1(text.encode()).hexdigest()[:16]  # a loaded path is never rebuilt
+        src, so = out_dir / f"{lib}_{tag}.cu", out_dir / f"lib{lib}_{tag}.so"
+        src.write_text(text)
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I", str(csrc),
                "-o", str(so), str(src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True), so)
@@ -52,6 +58,8 @@ def build_all(lib: str, variants: dict) -> dict:
             continue
         handle = ctypes.CDLL(str(so))
         for fn, argtypes in cuda_build.SIGNATURES[lib].items():
+            if not hasattr(handle, fn):
+                continue
             getattr(handle, fn).argtypes = argtypes
             getattr(handle, fn).restype = ctypes.c_int
         built[name] = (handle, stderr)

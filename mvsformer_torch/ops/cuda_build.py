@@ -48,7 +48,10 @@ SIGNATURES = {
                 "visibility_net_f32": [_P] * 3 + [_I] * 3 + [_P],
                 "visibility_net_packed_floats": [],
                 "visibility_net_blocks_per_sm": []},
-    "encoder_head": {"encoder_head_f32": [_P] * 4 + [_I] * 3 + [_P]},
+    "encoder_head": {"encoder_head_pack_f32": [_P] * 11,
+                     "encoder_head_f32": [_P] * 4 + [_I] * 3 + [_P],
+                     "encoder_head_packed_floats": [],
+                     "encoder_head_blocks_per_sm": []},
     "fpn_level": {"fpn_level_f32": [_P] * 6 + [_I] * 5 + [_P],
                   "fpn_level_blocks_per_sm": [_I] * 2},
     "gsa_attention": {"gsa_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]},

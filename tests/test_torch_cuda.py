@@ -13,7 +13,10 @@ import torch
 
 from mvsformer_torch.models.blocks import swish
 from mvsformer_torch.ops import cuda_build, geometry
+from mvsformer_torch.ops.encoder_head import PACKED_FLOATS as ENCODER_HEAD_PACKED_FLOATS
 from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
+from mvsformer_torch.ops.encoder_head import pack as encoder_head_pack
+from mvsformer_torch.ops.encoder_head import pack_plain as encoder_head_pack_plain
 from mvsformer_torch.ops.fpn_level import LEVELS, fpn_level, fpn_level_plain
 from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 from mvsformer_torch.ops.stage_tail import depth_decode, depth_decode_plain
@@ -228,8 +231,10 @@ def head_weights(rng, t):
     return ks[0], folds[0], ks[1], folds[1], ks[2], folds[2]
 
 
-# H and W not multiples of the 16 x 32 tile, odd sizes (down0 of ceil(H/2)).
-@pytest.mark.parametrize("N,H,W", [(2, 37, 45), (1, 64, 96), (1, 15, 70)])
+# H and W not multiples of the 16 x 32 tile, odd sizes (down0 of ceil(H/2)),
+# the tile cut on every side at N = 5, exactly one tile, a 1-pixel-high image.
+@pytest.mark.parametrize("N,H,W", [(2, 37, 45), (1, 64, 96), (1, 15, 70), (5, 33, 65),
+                                   (1, 16, 32), (3, 1, 3)])
 def test_encoder_head_matches_plain(dev, N, H, W):
     rng = np.random.default_rng(3)
     t = tensor(dev)
@@ -242,6 +247,43 @@ def test_encoder_head_matches_plain(dev, N, H, W):
     assert got[1].shape == (N, 16, (H + 1) // 2, (W + 1) // 2)
     for g, w in zip(got, want):  # fp32; 147-200 products per output summed in another order
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("N,H,W", [(5, 33, 65), (2, 17, 40)])
+def test_encoder_head_is_fp32_accurate_over_a_wide_range(dev, N, H, W):
+    """Images with |x| from 1e-3 to 1e2, against the head in float64: within
+    1e-5 of each output's scale, ten times under K4's bound. The CPU
+    emulation of the kernel's 3xTF32 reads about 3e-7 of scale and one TF32
+    product about 5e-4 (tests/test_torch_encoder_tf32.py)."""
+    rng = np.random.default_rng(16)
+    t = tensor(dev)
+    wide = rng.choice([-1.0, 1.0], (N, 3, H, W)) * 10.0 ** rng.uniform(-3, 2, (N, 3, H, W))
+    imgs = t(wide)
+    weights = head_weights(rng, t)
+    got = encoder_head(imgs, *weights)
+    want = encoder_head_plain(imgs.double(), *(
+        tuple(v.double() for v in w) if isinstance(w, tuple) else w.double() for w in weights))
+    for g, w in zip(got, want):
+        assert float((g.double() - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_encoder_head_packs_its_weights_as_pack_plain(dev):
+    """The device pack kernel writes the folded BNs and the three layers'
+    TF32 parts in B-fragment order as ops/encoder_head.pack_plain (the
+    layouts of ops/tf32.pack_conv_rows and pack_conv), bit for bit."""
+    weights = head_weights(np.random.default_rng(17), tensor(dev))
+    lib = cuda_build.library("encoder_head")
+    assert lib.encoder_head_packed_floats() == ENCODER_HEAD_PACKED_FLOATS
+    packed = encoder_head_pack(lib, *weights, torch.cuda.current_stream().cuda_stream)
+    assert torch.equal(packed.cpu(), encoder_head_pack_plain(*(
+        tuple(v.cpu() for v in w) if isinstance(w, tuple) else w.cpu() for w in weights)))
+
+
+def test_encoder_head_keeps_two_blocks_per_sm(dev):
+    """103,616 B of shared memory and at most 128 registers a thread
+    (__launch_bounds__(256, 2)): two blocks share an SM, as the design note
+    in csrc/encoder_head.cu says."""
+    assert cuda_build.library("encoder_head").encoder_head_blocks_per_sm() == 2
 
 
 def level_weights(rng, t, cl, co):
