@@ -11,7 +11,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    registers and spills, K5's resident blocks per SM at each level (its
    design needs two), K2's (its design needs three) and K1's and K7's at
    each DTU stage (their design needs four), K8's at each stage of the
-   training step (three or more) and K4's (its design needs two).
+   training step (three or more), K4's (its design needs two) and K6's
+   (its design needs four).
 3. Build TwinMVSNet on `cuda` in fp32 at the default ModelConfig (the full
    width of alt_gvt_small, ndepths 32/16/8/4, inverse depth, cnn fusion, ce
    decode), with weights and non-trivial BN running stats drawn from a
@@ -79,7 +80,8 @@ multiply-add, which keeps fp32's accuracy), so their bounds have a third
 term: 3 x 2 x those multiply-adds over 494.7 TFLOP/s (dense TF32), with
 their other operations over 67 TFLOP/s; their lines name the term that
 binds ("bytes", "tensor" or "operations") and the kernel's share of the
-bound. K4 runs all three of its convs that way. A kernel's
+bound. K4 runs all three of its convs that way, and K6 both products of
+its attention (the softmax's operations stay on the fp32 term). A kernel's
 entry in the kernels line sums the bounds of its launches, and names the
 tensor term "operations".
 """
@@ -122,8 +124,10 @@ K3_CONF_ATOL, K3_CONF_RTOL = 1e-6, 1e-5
 #     PyTorch computes them (a wrong weight shows at 1e-2 of the scale).
 K4_RTOL_OF_SCALE = 1e-4   # per output (conv01, down0), of max(1, its max |value|)
 K5_RTOL_OF_SCALE = 1e-4   # per output (out, intra'), of max(1, its max |value|)
-# K6: fp32 logits and probabilities on both sides; the kernel's online
-#     softmax rescales its sums per 32 keys, the plain version divides once.
+# K6: fp32 logits and probabilities on both sides, both products in
+#     3xTF32 (fp32's accuracy: tests/test_torch_gsa_tf32.py); the kernel's
+#     online softmax rescales its sums per 64-key tile, the plain version
+#     divides once.
 K6_RTOL_OF_SCALE = 1e-5   # of max(1, max |output|): a convex mix of v rows
 # End to end, the forward on the card (kernels, cuDNN, cuBLAS) against the
 # same weights on the CPU (plain versions) at the __graft_entry__ request,
@@ -290,8 +294,10 @@ def k6_cost(args, kwargs):
     q, k, _, nh = args
     b, n, c = q.shape
     nk = k.shape[1]
-    # the two products, and ~5 ops per logit for the scale and online softmax.
-    return 4 * (2 * b * n * c + 2 * b * nk * c), 4 * b * n * nk * c + 5 * b * nh * n * nk
+    # Outside the tensor cores: ~5 ops per logit for the scale and the
+    # online softmax. On them: the two products' multiply-adds.
+    return (4 * (2 * b * n * c + 2 * b * nk * c), 5 * b * nh * n * nk,
+            2 * b * n * nk * c)
 
 
 def k7_cost(args, kwargs):
@@ -333,7 +339,7 @@ def k8_zoomed(torch, args):
 def bound_ms(nbytes, flops, tensor_macs=0):
     """(least ms, the term that binds): bytes over the memory rate, fp32
     operations over the CUDA cores' rate and, for a kernel on the tensor
-    cores (K2, K4, K5), its 3xTF32 products over the dense TF32 rate."""
+    cores (K2, K4, K5, K6), its 3xTF32 products over the dense TF32 rate."""
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / FP32_FLOPS_PER_S,
              "tensor": TF32_PRODUCTS * 2 * tensor_macs / TF32_FLOPS_PER_S}
     by = max(times, key=times.get)  # ties go to bytes, then operations
@@ -949,6 +955,10 @@ def main() -> int:
     print(f"encoder_head (K4) resident blocks per SM: {head_blocks}")
     if head_blocks < 2:
         raise RuntimeError("encoder_head: fewer than two blocks share an SM")
+    gsa_blocks = cuda_build.library("gsa_attention").gsa_attention_blocks_per_sm()
+    print(f"gsa_attention (K6) resident blocks per SM: {gsa_blocks}")
+    if gsa_blocks < 4:
+        raise RuntimeError("gsa_attention: fewer than four blocks share an SM")
 
     # 3. The model.
     t0 = time.perf_counter()
@@ -1119,6 +1129,12 @@ def main() -> int:
     print("warp_group_corr (K1) ms per stage: "
           + " / ".join(f"{r['ms']:.4f}" for r in per_call["warp_group_corr"])
           + f"; {sum(r['ms'] for r in per_call['warp_group_corr']):.4f} per request [{card}]")
+    k6 = per_call["gsa_attention"]
+    k6_ms, k6_bound = sum(r["ms"] for r in k6), sum(r["bound_ms"] for r in k6)
+    print("gsa_attention (K6) ms per launch: " + " / ".join(f"{r['ms']:.4f}" for r in k6)
+          + f"; {k6_ms:.4f} per request, {k6_bound / k6_ms:.1%} of its {k6_bound:.4f} ms "
+          f"bound; scaled_dot_product_attention {sum(r['library_ms'] for r in k6):.4f} "
+          f"[{card}]")
 
     # 7. End to end against the plain versions on the CPU, small request.
     e2e = small_request_errors(torch, model, make_infer_fn)
@@ -1144,6 +1160,7 @@ def main() -> int:
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
         "k2_blocks_per_sm": vis_blocks, "k4_blocks_per_sm": head_blocks,
+        "k6_blocks_per_sm": gsa_blocks,
         "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,

@@ -54,7 +54,8 @@ SIGNATURES = {
                      "encoder_head_blocks_per_sm": []},
     "fpn_level": {"fpn_level_f32": [_P] * 6 + [_I] * 5 + [_P],
                   "fpn_level_blocks_per_sm": [_I] * 2},
-    "gsa_attention": {"gsa_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P]},
+    "gsa_attention": {"gsa_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
+                      "gsa_attention_blocks_per_sm": []},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,12 +1,14 @@
 """K6: Twins global sub-sampled attention, softmax(q k^T / sqrt(hd)) v per head.
 
 Port of `mvsformer_tpu/ops/pallas/gsa_attention.py` `gsa_attention`. The
-kernel is `csrc/gsa_attention.cu`; `gsa_attention_plain` is its plain
-version, the two matmuls and the fp32 softmax of
-`GlobalSubsampledAttention`. Heads are contiguous slices of C. Unlike the
-Pallas kernel, which casts the probabilities to bf16, both versions keep
-them in fp32. `gsa_attention` launches the kernel for CUDA tensors and runs
-the plain version only for CPU tensors.
+kernel is `csrc/gsa_attention.cu` (both products in 3xTF32 on the tensor
+cores, fp32's accuracy; `tests/test_torch_gsa_tf32.py` emulates its
+arithmetic on the CPU); `gsa_attention_plain` is its plain version, the two
+matmuls and the fp32 softmax of `GlobalSubsampledAttention`. Heads are
+contiguous slices of C. Unlike the Pallas kernel, which casts the
+probabilities to bf16, both versions keep them in fp32. `gsa_attention`
+launches the kernel for CUDA tensors and runs the plain version only for
+CPU tensors; it adds no PyTorch op but the output's `torch.empty`.
 """
 
 from __future__ import annotations

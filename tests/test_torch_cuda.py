@@ -334,10 +334,13 @@ def test_fpn_level_is_fp32_accurate_over_a_wide_range(dev, cl, co):
         assert float((got.double() - ref.double()).abs().max()) <= 1e-5 * scale
 
 
-# N not a multiple of the 128-row block; Nk above the 64-key chunk and not
-# a multiple of it, or a single key; k and v as the halves of one tensor.
+# N not a multiple of the 64-row block; Nk above the 64-key tile and not a
+# multiple of it, a single key, one tile exactly, or 7 keys; the four DTU
+# head layouts (C = 64, 128, 256, 512) at Nk = 432; k and v as the halves of
+# one tensor.
 @pytest.mark.parametrize("B,N,Nk,nh", [(2, 300, 100, 2), (1, 1000, 432, 4), (3, 17, 1, 1),
-                                       (1, 129, 64, 16)])
+                                       (1, 129, 64, 16), (2, 500, 432, 2), (1, 333, 432, 8),
+                                       (1, 100, 432, 16), (2, 40, 7, 2)])
 def test_gsa_attention_matches_plain(dev, B, N, Nk, nh):
     rng = np.random.default_rng(5)
     t = tensor(dev)
@@ -349,6 +352,35 @@ def test_gsa_attention_matches_plain(dev, B, N, Nk, nh):
     want = gsa_attention_plain(q, kv[..., :C], kv[..., C:], nh)
     # fp32 logits and probabilities; sums in another order.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,N,Nk,nh", [(2, 300, 432, 2), (1, 100, 100, 16)])
+def test_gsa_attention_is_fp32_accurate_over_a_wide_range(dev, B, N, Nk, nh):
+    """Logits over about +-50 (q and k scaled so their standard deviation is
+    17) against attention in float64: 3xTF32 products keep fp32's accuracy
+    (tests/test_torch_gsa_tf32.py emulates them: ~1.5e-6 of scale there,
+    one TF32 product ~3e-3)."""
+    rng = np.random.default_rng(13)
+    t = tensor(dev)
+    C = 32 * nh
+    g = 17.0 ** 0.5
+    q = t(rng.standard_normal((B, N, C)) * g)
+    kv = t(np.concatenate([rng.standard_normal((B, Nk, C)) * g,
+                           rng.standard_normal((B, Nk, C))], axis=-1))
+    k, v = kv[..., :C], kv[..., C:]
+    got = gsa_attention(q, k, v, nh)
+    heads = lambda x: x.double().reshape(B, x.shape[1], nh, 32).transpose(1, 2)
+    logits = heads(q) @ heads(k).transpose(-1, -2) * 32 ** -0.5
+    assert float(logits.max()) > 40 and float(logits.min()) < -40
+    want = (torch.softmax(logits, -1) @ heads(v)).transpose(1, 2).reshape(B, N, C)
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_gsa_attention_keeps_its_blocks_per_sm(dev):
+    """The design's occupancy (csrc/gsa_attention.cu): four blocks of 4 warps
+    an SM, at most 128 registers a thread and 38,912 bytes of shared
+    memory a block."""
+    assert cuda_build.library("gsa_attention").gsa_attention_blocks_per_sm() == 4
 
 
 def test_new_wrappers_raise_instead_of_falling_back(dev):
