@@ -988,7 +988,7 @@ def main() -> int:
         "depth_decode": dict(
             kernel=stage_tail.depth_decode, plain=stage_tail.depth_decode_plain,
             owner=stagenet, per_request=nstages, cost=k3_cost, compare=compare_k3,
-            route="triton", source="mvsformer_torch/ops/stage_tail.py",
+            route="cuda", source="mvsformer_torch/csrc/depth_decode.cu",
             replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57"),
         "encoder_head": dict(
             kernel=encoder_head.encoder_head, plain=encoder_head.encoder_head_plain,

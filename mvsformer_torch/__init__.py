@@ -2,8 +2,9 @@
 
 The port of `mvsformer_tpu` (JAX on a TPU). Plain tensor code is PyTorch;
 each Pallas kernel of the JAX package is a kernel written by hand for the
-H100 (`csrc/` for CUDA C++, Triton inside `ops/`), with its plain PyTorch
-version beside it in the same module.
+H100 in CUDA C++ (`csrc/`, built with nvcc and bound by ctypes in
+`ops/cuda_build.py`), with its plain PyTorch version beside its wrapper in
+`ops/`.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 GPU present they raise rather than carry on on the CPU.

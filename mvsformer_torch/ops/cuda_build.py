@@ -56,6 +56,7 @@ SIGNATURES = {
                   "fpn_level_blocks_per_sm": [_I] * 2},
     "gsa_attention": {"gsa_attention_f32": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_F, _P],
                       "gsa_attention_blocks_per_sm": []},
+    "depth_decode": {"depth_decode_f32": [_P] * 4 + [_I] * 3 + [_F, _P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
@@ -140,6 +141,36 @@ def require_cuda_inputs(what: str, *tensors) -> bool:
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{what}: all inputs must lie on one CUDA device, got {devices}")
     return True
+
+
+class _NoBackward(torch.autograd.Function):
+    """The identity on an eval kernel's outputs, whose backward raises."""
+
+    @staticmethod
+    def forward(ctx, what, n_out, *tensors):
+        ctx.what = what
+        return tensors[:n_out]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(
+            f"{ctx.what}: this eval kernel has no backward; run the eval forward under "
+            "torch.no_grad() or torch.inference_mode(), or in train mode")
+
+
+def eval_outputs(what: str, outputs, *inputs):
+    """An eval kernel's `outputs` (a tensor or a tuple), as the wrapper
+    returns them. The kernels write them through ctypes, which autograd
+    does not see, so when grad mode is on and any of `inputs` requires grad
+    they pass through an identity whose backward raises, naming the kernel:
+    a gradient through an eval forward fails where it is asked for instead
+    of stopping silently. Otherwise (under no_grad or inference_mode) they
+    come back as they are."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in inputs)):
+        return outputs
+    outs = outputs if isinstance(outputs, tuple) else (outputs,)
+    tracked = _NoBackward.apply(what, len(outs), *outs, *inputs)
+    return tracked if isinstance(outputs, tuple) else tracked[0]
 
 
 def check_f32_contiguous(what: str, **tensors) -> None:

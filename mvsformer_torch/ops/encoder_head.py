@@ -72,7 +72,7 @@ def encoder_head(imgs, k00, fold00, k01, fold01, kd, foldd):
         stream = torch.cuda.current_stream(imgs.device).cuda_stream
         out = launch(lib, imgs, pack(lib, k00, fold00, k01, fold01, kd, foldd, stream), stream)
     cuda_build.LAUNCHES[what] += 1
-    return out
+    return cuda_build.eval_outputs(what, out, imgs, k00, k01, kd, *folds)
 
 
 def pack(lib, k00, fold00, k01, fold01, kd, foldd, stream):

@@ -95,4 +95,5 @@ def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = Fals
                                N, h, w, cl, co, stream)
     cuda_build.check_launch(rc, what)
     cuda_build.LAUNCHES[what] += 1
-    return (out, intra) if emit_intra else out
+    return cuda_build.eval_outputs(what, (out, intra) if emit_intra else out,
+                                   intra_prev, lateral, w1, b1, k3, b3, mul, add)

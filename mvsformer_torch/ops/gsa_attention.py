@@ -8,7 +8,8 @@ matmuls and the fp32 softmax of `GlobalSubsampledAttention`. Heads are
 contiguous slices of C. Unlike the Pallas kernel, which casts the
 probabilities to bf16, both versions keep them in fp32. `gsa_attention`
 launches the kernel for CUDA tensors and runs the plain version only for
-CPU tensors; it adds no PyTorch op but the output's `torch.empty`.
+CPU tensors; it adds no PyTorch op but the output's `torch.empty` (and,
+when an input requires grad, `cuda_build.eval_outputs`' identity).
 """
 
 from __future__ import annotations
@@ -69,4 +70,4 @@ def gsa_attention(q, k, v, num_heads: int):
                                    ctypes.c_float(HEAD_DIM ** -0.5), stream)
     cuda_build.check_launch(rc, what)
     cuda_build.LAUNCHES[what] += 1
-    return out
+    return cuda_build.eval_outputs(what, out, q, k, v)

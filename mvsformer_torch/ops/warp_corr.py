@@ -93,7 +93,8 @@ def warp_group_corr(ref, src, src_projs, ref_proj, depth_values, groups: int = 8
             corr.data_ptr(), ent.data_ptr(), B, V, D, H, W, C, groups, stream)
     cuda_build.check_launch(rc, what)
     cuda_build.LAUNCHES[what] += 1
-    return corr, ent
+    return cuda_build.eval_outputs(what, (corr, ent), ref, src, src_projs, ref_proj,
+                                   depth_values)
 
 
 def warp_corr_fwd(ref, src, src_projs, ref_proj, depth_values, groups: int = 8):

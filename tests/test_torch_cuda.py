@@ -1,7 +1,7 @@
 """The port's hand-written kernels against their plain versions, on the GPU.
 
-Every test here needs an NVIDIA GPU with the CUDA toolkit and Triton, and
-skips without one. This file imports neither JAX nor the JAX package, so it
+Every test here needs an NVIDIA GPU with the CUDA toolkit, and skips
+without one. This file imports neither JAX nor the JAX package, so it
 runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from mvsformer_torch.models.blocks import swish
+from mvsformer_torch.models.fpn import FPNDecoder, FPNEncoder
+from mvsformer_torch.models.stagenet import StageNet, VisibilityNet
+from mvsformer_torch.models.twins import GlobalSubsampledAttention
 from mvsformer_torch.ops import cuda_build, geometry
 from mvsformer_torch.ops.encoder_head import PACKED_FLOATS as ENCODER_HEAD_PACKED_FLOATS
 from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
@@ -194,16 +197,89 @@ def test_visibility_net_raises_instead_of_falling_back(dev):
         visibility_net(ent.double(), k0, k1, k2, k3, b3, folds)
 
 
-@pytest.mark.parametrize("shape", [(1, 32, 144, 192), (2, 4, 37, 45)])
-def test_depth_decode_matches_plain(dev, shape):
+# The DTU request's 4 stages at their temperatures; B = 2 on both load
+# paths; an odd H*W (the scalar path); D = 1, 3 and 48 (two passes, merged);
+# logits x 30, whose largest terms dwarf the rest.
+DECODE_CASES = [((1, 32, 144, 192), 5.0, 3.0), ((1, 16, 288, 384), 5.0, 3.0),
+                ((1, 8, 576, 768), 5.0, 3.0), ((1, 4, 1152, 1536), 1.0, 3.0),
+                ((2, 4, 37, 45), 5.0, 3.0), ((2, 8, 36, 48), 1.0, 3.0),
+                ((1, 1, 37, 45), 5.0, 3.0), ((2, 3, 20, 44), 1.0, 3.0),
+                ((1, 48, 37, 45), 5.0, 3.0), ((2, 48, 24, 32), 1.0, 3.0),
+                ((1, 32, 144, 192), 5.0, 30.0), ((1, 48, 37, 45), 1.0, 30.0)]
+
+
+@pytest.mark.parametrize("shape,tmp,scale", DECODE_CASES)
+def test_depth_decode_matches_plain(dev, shape, tmp, scale):
     rng = np.random.default_rng(2)
-    logits = torch.from_numpy((rng.standard_normal(shape) * 3).astype(np.float32)).to(dev)
+    logits = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
     dv = torch.from_numpy(np.sort(rng.uniform(425, 900, shape).astype(np.float32), 1)).to(dev)
-    depth, conf = depth_decode(logits, dv, 5.0)
-    want_d, want_c = depth_decode_plain(logits, dv, 5.0)
+    before = cuda_build.LAUNCHES["depth_decode"]
+    depth, conf = depth_decode(logits, dv, tmp)
+    assert cuda_build.LAUNCHES["depth_decode"] == before + 1
+    want_d, want_c = depth_decode_plain(logits, dv, tmp)
     # exp(tmp*(l-m)) against softmax(tmp*l): ~1e-6 relative in each weight.
     torch.testing.assert_close(depth, want_d, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(conf, want_c, rtol=1e-5, atol=1e-6)
+
+
+def stage_inputs(dev, rng, B, V, H, W, C, D):
+    """StageNet's inputs: features, cameras as [.., 2, 4, 4] (the composed
+    projection in slot 0 and identity intrinsics, which compose to it) and
+    pixelwise depths."""
+    src_p, ref_p = cams(rng, B, V, H, W)
+    slots = lambda p: np.stack([p, np.broadcast_to(np.eye(4, dtype=np.float32), p.shape)], -3)
+    t = tensor(dev)
+    return (t(rng.standard_normal((B, C, H, W))), t(rng.standard_normal((B, V - 1, C, H, W))),
+            t(slots(ref_p)), t(slots(src_p[:, 1:])),
+            torch.from_numpy(depth_hypotheses(rng, B, D, H, W)).to(dev))
+
+
+def eval_forward(kernel, dev):
+    """A toy eval forward that goes through `kernel`, with weights (or, for
+    K1, features) that require grad -> its outputs, as a tuple. K1 is called
+    directly: in StageNet its outputs reach the loss only through K2's."""
+    torch.manual_seed(0)
+    rng = np.random.default_rng(0)
+    t = tensor(dev)
+    if kernel == "warp_group_corr":
+        ref, *rest = warp_inputs(dev, rng, 1, 2, 16, 20, 8, 4)
+        return warp_group_corr(ref.requires_grad_(), *rest)
+    if kernel == "visibility_net":
+        return (VisibilityNet().to(dev).eval()(t(rng.uniform(0, 3.5, (2, 16, 16)))),)
+    if kernel == "depth_decode":
+        out = StageNet(4).to(dev).eval()(*stage_inputs(dev, rng, 1, 3, 16, 32, 8, 4), 5.0)
+        return out["depth"], out["photometric_confidence"]
+    if kernel == "encoder_head":
+        return FPNEncoder().to(dev).eval()(t(rng.standard_normal((1, 3, 32, 32))))
+    if kernel == "fpn_level":
+        return FPNDecoder().to(dev).eval()(*(t(rng.standard_normal(s)) for s in (
+            (1, 8, 32, 32), (1, 16, 16, 16), (1, 32, 8, 8), (1, 64, 4, 4))))
+    assert kernel == "gsa_attention"
+    return (GlobalSubsampledAttention(64, 2, 2).to(dev).eval()(
+        t(rng.standard_normal((1, 8, 8, 64)))),)
+
+
+@pytest.mark.parametrize("kernel", ["warp_group_corr", "visibility_net", "depth_decode",
+                                    "encoder_head", "fpn_level", "gsa_attention"])
+def test_eval_kernel_backward_raises(dev, kernel):
+    """A backward through an eval kernel raises, naming it (its outputs are
+    written through ctypes, out of autograd's sight); under no_grad or
+    inference_mode the same forward adds no autograd node, launches as often
+    and gives the same outputs."""
+    before = cuda_build.LAUNCHES[kernel]
+    outs = eval_forward(kernel, dev)
+    launches = cuda_build.LAUNCHES[kernel] - before
+    assert launches > 0 and all(o.grad_fn is not None for o in outs)
+    with pytest.raises(RuntimeError, match=f"{kernel}: this eval kernel has no backward"):
+        sum(o.sum() for o in outs).backward()
+    for quiet in (torch.no_grad, torch.inference_mode):
+        before = cuda_build.LAUNCHES[kernel]
+        with quiet():
+            got = eval_forward(kernel, dev)
+        assert cuda_build.LAUNCHES[kernel] - before == launches
+        assert all(o.grad_fn is None and not o.requires_grad for o in got)
+        for a, b in zip(outs, got):
+            torch.testing.assert_close(a.detach(), b.clone())
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

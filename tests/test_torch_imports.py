@@ -1,7 +1,7 @@
 """Guard tests for the PyTorch port's boundaries.
 
 `mvsformer_torch` imports torch, never JAX, flax or the JAX package (not
-even its JAX-free modules), and neither does `chip_smoke.py`. Its entry
+even its JAX-free modules), nor Triton, and neither does `chip_smoke.py`. Its entry
 points run on CUDA unless the caller asks for the CPU, and raise when CUDA
 is asked for and absent.
 """
@@ -65,6 +65,19 @@ def test_no_port_file_imports_jax_or_the_jax_package(path):
             names.append(node.module or "")
     bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_file_imports_triton(path):
+    """Every kernel is CUDA C++ built by nvcc and bound by ctypes, so the
+    card's machine needs no Triton."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and node.level == 0]
+    assert not [n for n in names if n.split(".")[0] == "triton"], f"{path} imports triton"
 
 
 def test_build_model_without_device_raises_when_cuda_is_absent(monkeypatch):

@@ -1,9 +1,9 @@
 """The kernel-variant scripts' substitutions against the sources they edit.
 
-`k1_variants`, `k2_variants`, `k4_variants`, `k6_variants` and
-`k8_variants` time copies of `csrc/warp_corr.cu`, `csrc/vis_net.cu`,
-`csrc/encoder_head.cu`, `csrc/gsa_attention.cu` and `csrc/warp_corr_bwd.cu`
-with lines substituted; they run only on a GPU. (`k4_variants`' and
+`k1_variants`, `k2_variants`, `k3_variants`, `k4_variants`, `k6_variants`
+and `k8_variants` time copies of `csrc/warp_corr.cu`, `csrc/vis_net.cu`,
+`csrc/depth_decode.cu`, `csrc/encoder_head.cu`, `csrc/gsa_attention.cu` and
+`csrc/warp_corr_bwd.cu` with lines substituted; they run only on a GPU. (`k4_variants`' and
 `k6_variants`' `PARENT_VARIANTS` edit an earlier tree's source, which they
 are given on the command line.) Here,
 on the CPU, every variant's lines must still be found in today's source
@@ -14,12 +14,14 @@ them.
 
 import pytest
 
-from mvsformer_torch import k1_variants, k2_variants, k4_variants, k6_variants, k8_variants
+from mvsformer_torch import (k1_variants, k2_variants, k3_variants, k4_variants, k6_variants,
+                             k8_variants)
 from mvsformer_torch.kernel_variants import ptxas_summary, variant_source
 from mvsformer_torch.ops import cuda_build
 
 CASES = [("warp_corr", name, subs) for name, subs in k1_variants.VARIANTS.items()] + \
         [("vis_net", name, subs) for name, subs in k2_variants.VARIANTS.items()] + \
+        [("depth_decode", name, subs) for name, subs in k3_variants.VARIANTS.items()] + \
         [("encoder_head", name, subs) for name, subs in k4_variants.VARIANTS.items()] + \
         [("gsa_attention", name, subs) for name, subs in k6_variants.VARIANTS.items()] + \
         [("warp_corr_bwd", name, subs) for name, subs in k8_variants.VARIANTS.items()]

@@ -184,3 +184,76 @@ def test_depth_decode_plain_matches_jax_and_pallas_interpret(shape):
     # The tolerances tests/test_stage_tail.py holds the Pallas kernel to.
     np.testing.assert_allclose(got_d.numpy(), np.asarray(k_d), rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(got_c.numpy(), np.asarray(k_c), rtol=1e-5, atol=1e-6)
+
+
+def decode_partial(l, dv, tmp):
+    """csrc/depth_decode.cu's partial (m, s1, st, ws) of the depths of one
+    pass, [B, n, H, W] -> 4 x [B, H, W]: the max, then the sums from it."""
+    m = l.amax(dim=1)
+    x = l - m[:, None]
+    et = torch.exp(tmp * x)
+    return m, torch.exp(x).sum(dim=1), et.sum(dim=1), (et * dv).sum(dim=1)
+
+
+def merge_partials(a, b, tmp):
+    """The kernel's merge: the partial with the larger max keeps its sums,
+    the other's are scaled by exp(m' - m) and exp(tmp (m' - m)); an empty
+    partial (m = -inf) is the identity."""
+    (ma, s1a, sta, wsa), (mb, s1b, stb, wsb) = a, b
+    m = torch.maximum(ma, mb)
+    one = torch.ones_like(m)
+    ca, cb = (torch.where(mx == m, one, torch.exp(mx - m)) for mx in (ma, mb))
+    ta, tb = (torch.where(mx == m, one, torch.exp(tmp * (mx - m))) for mx in (ma, mb))
+    merged = (m, s1a * ca + s1b * cb, sta * ta + stb * tb, wsa * ta + wsb * tb)
+    a_empty, b_empty = ma == -torch.inf, mb == -torch.inf
+    return tuple(torch.where(b_empty, x, torch.where(a_empty, y, z))
+                 for x, y, z in zip(a, b, merged))
+
+
+def emulate_decode(l, dv, tmp, depths_per_pass, lanes):
+    """K3's arithmetic in fp32 torch: lane r of a pixel's `lanes` takes the
+    depths r, r + lanes, ... in passes of `depths_per_pass`, merging each
+    pass into its running partial; the lanes then meet by xor butterflies,
+    as the shuffles do, and lane 0's partial gives (depth, conf)."""
+    B, D, H, W = l.shape
+    empty = (torch.full((B, H, W), -torch.inf), torch.zeros(B, H, W), torch.zeros(B, H, W),
+             torch.zeros(B, H, W))
+    acc = []
+    for r in range(lanes):
+        mine = list(range(r, D, lanes))
+        part = empty
+        for i in range(0, len(mine), depths_per_pass):
+            chunk = mine[i:i + depths_per_pass]
+            part = merge_partials(part, decode_partial(l[:, chunk], dv[:, chunk], tmp), tmp)
+        acc.append(part)
+    off = 1
+    while off < lanes:
+        acc = [merge_partials(acc[r], acc[r ^ off], tmp) for r in range(lanes)]
+        off *= 2
+    _, s1, st, ws = acc[0]
+    return ws / st, 1.0 / s1
+
+
+# (D, depths a pass, lanes): the kernel's own two passes at D = 48; passes
+# of 8 and of 4 depths; D = 32 over 4 lanes and 16 over 2; D = 3 and 1 over
+# 4 lanes, where some lanes hold nothing. Logits x 3 and x 30.
+@pytest.mark.parametrize("D,per_pass,lanes,scale", [
+    (48, 32, 1, 3.0), (32, 8, 1, 3.0), (8, 4, 1, 30.0), (32, 8, 4, 3.0), (16, 4, 2, 30.0),
+    (3, 4, 4, 3.0), (1, 4, 4, 3.0)])
+def test_depth_decode_merge_matches_jax_and_pallas_interpret(D, per_pass, lanes, scale):
+    rng = np.random.default_rng(5)
+    shape = (2, D, 8, 128)
+    logits = (rng.standard_normal(shape) * scale).astype(np.float32)
+    dv = np.sort(rng.uniform(400, 900, shape).astype(np.float32), axis=1)
+    tmp = 5.0
+    got_d, got_c = emulate_decode(T(logits), T(dv), tmp, per_pass, lanes)
+
+    jl = jnp.asarray(logits)
+    want_d, want_c = jreg.decode_depth(jl, jax.nn.softmax(jl, axis=1), jnp.asarray(dv),
+                                       "ce", D, training=False, tmp=tmp)
+    with pltpu.force_tpu_interpret_mode():
+        k_d, k_c = fused_depth_decode(jl, jnp.asarray(dv), tmp)
+    # The tolerances tests/test_stage_tail.py holds the Pallas kernel to.
+    for d, c in ((want_d, want_c), (k_d, k_c)):
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(d), rtol=1e-5, atol=1e-3)
+        np.testing.assert_allclose(got_c.numpy(), np.asarray(c), rtol=1e-5, atol=1e-6)
