@@ -40,7 +40,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    recorded sample beside a second one with its own depths and cameras;
    K4 once; K5 at each FPN level; K6 at each GSA block), and time both; for
    K6 also time scaled_dot_product_attention on the same inputs as the
-   library yardstick. Print K1's time per stage.
+   library yardstick. Print K1's time per stage. Each of K1-K6 must also
+   give the same bits in 5 runs on each of those inputs.
 7. Run the __graft_entry__ request (B=1, 3 views, 128x128, 192 depths) on
    the card and, with the same weights, on the CPU (the plain versions),
    TF32 off, and compare depth and confidences.
@@ -69,7 +70,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    warmup) on the card and, with the same weights and batch, on the CPU,
    and compare the losses, the gradients, the BN running statistics and
    the updated parameters.
-11. Print one JSON line of per-kernel numbers, then, last, the result line
+11. The DTU test pipeline (`python -m mvsformer_torch.test`'s two phases).
+   Write a synthetic DTU-layout scan with the port's writers: 6 views of a
+   tilted plane, each with the other 5 as sources, 1600x1200 PNG images
+   under images/*.jpg (so the dataset resizes them), DTU cam files and
+   Depths_raw ground truth; time the decode of one image, and of copies
+   whose rows take libpng's adaptive filters or Paeth (the decoder's
+   wavefront path), and the unfiltering of Up rows by both paths. Run `save_depth`
+   on the card at the default ModelConfig (1152x1536, 192 depths, 5 views,
+   random weights from seed 0): 6 requests, each timed as load, forward and
+   writes, with every launch count set to 0 just before and read just
+   after (K1-K6: 6 x their per-request counts), then once more under
+   torch.profiler for the device's idle share. Hold view 0's saved depth
+   and confidence to `make_infer_fn` on the same sample, and two runs of
+   `make_infer_fn` to each other, within the card-to-CPU tolerance; name
+   the first op whose output varies between two forwards; then, with
+   `cudnn.deterministic`, run save_depth again and require view 0 and two
+   runs of `make_infer_fn` to agree bit for bit. Run save_depth at a small
+   shape on the card and on the CPU with the same weights and compare
+   every artifact (depth_metric.txt within 1e-4). Fuse the plane's exact depth maps by pcd, dpcd
+   and gipuma on the card and on the CPU (kept share of the interior, mask
+   agreement, points, distance from the plane; fusion ms per view), then
+   the random weights' depth maps into a PLY as a smoke run.
+12. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
 Bounds: the larger of bytes moved (each input read once, each output
@@ -221,6 +244,9 @@ def time_ms(torch, fn, reps=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+REPEAT_RUNS = 5  # runs of an eval kernel on the same inputs, compared bit for bit
 
 
 def max_err(a, b) -> float:
@@ -505,14 +531,40 @@ def call_label(name, i, args):
     return f"stage{i + 1}"
 
 
+def tensors_of(out):
+    """The tensors of a kernel's output (a tensor or a tuple of them), in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensors_of(o)]
+    return [out] if hasattr(out, "shape") else []
+
+
+def bit_equal(torch, a, b) -> bool:
+    """Whether two outputs hold the same bits (NaN payloads included)."""
+    ta, tb = tensors_of(a), tensors_of(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+        for x, y in zip(ta, tb))
+
+
 def check_kernel(torch, card, name, spec, label, args, kwargs):
     """Hold one launch of a kernel against its plain version on the same
-    inputs, and time both (and the library call, where there is one)."""
+    inputs, and time both (and the library call, where there is one). An
+    eval kernel (`bitwise` in its spec) must also give the same bits in
+    REPEAT_RUNS runs on the same inputs: none of K1-K6 sums with atomics."""
     with torch.no_grad():
         got = spec["kernel"](*args, **kwargs)
+        repeat = ""
+        if spec.get("bitwise"):
+            if not all(bit_equal(torch, got, spec["kernel"](*args, **kwargs))
+                       for _ in range(REPEAT_RUNS - 1)):
+                raise RuntimeError(f"{name} {label}: the kernel's output varies between runs "
+                                   f"on the same inputs")
+            repeat = f"; bit-equal in {REPEAT_RUNS} runs"
         want = spec["plain"](*args, **kwargs)
         torch.cuda.synchronize()
         ok, err, detail, tol = spec["compare"](got, want)
+        detail += repeat
         ms = time_ms(torch, lambda: spec["kernel"](*args, **kwargs))
         plain_ms = time_ms(torch, lambda: spec["plain"](*args, **kwargs), reps=3)
         lib_ms = None
@@ -902,6 +954,538 @@ def training_phase(torch, card, eval_kernels):
                       "W": TRAIN_W, "depths": NDEPTH_FULL}}
 
 
+# The DTU test pipeline (phase 11): a synthetic DTU-layout scan of a tilted
+# plane, written by the port's own codecs, through `save_depth` (1152x1536,
+# 192 depths, 5 views per request, the default ModelConfig) and the three
+# fusion methods. The cameras look down z from x = 10 v; the plane is
+# z = 650 + 0.1 x + 0.05 y in the world.
+PIPE_VIEWS = 6               # reference views, each with the other 5 as sources
+PIPE_NUM_VIEW = 5            # views per request (the JAX default)
+PIPE_IMG_HW = (1200, 1600)   # DTU's image size, resized to H x W by the dataset
+PIPE_FOCAL = 1400.0          # at the image's size, as the cam files hold it
+PIPE_BASELINE = 10.0
+PIPE_PLANE = (650.0, 0.1, 0.05)
+PIPE_METHODS = ("pcd", "dpcd", "gipuma")
+PIPE_KEEP_MIN = 0.9          # of the interior (the middle 3/4 of each axis)
+PIPE_MASK_AGREE = 0.9999     # card against CPU, of the pixels
+PIPE_POINT_RTOL = 1e-4       # card against CPU where both keep, of |point|
+PIPE_PLANE_RTOL = 1e-3       # kept points off the plane, of its depth
+PIPE_METRIC_ATOL = 1e-4      # depth_metric.txt, card against CPU (the CPU tests' bound)
+# Card against CPU at a small shape: 3 views, ndepths 8/4/4/2 over 48 depths,
+# images 150x225 resized to 128x192 (the backbone needs multiples of 64).
+PIPE_SMALL = dict(img_hw=(150, 225), max_hw=(128, 192), num_view=3, ndepths=[8, 4, 4, 2],
+                  depths=48, views=4)
+
+
+def first_varying_module(torch, model, fn, inputs):
+    """Run fn(*inputs) twice with a forward hook on every leaf module that
+    sums the bits of its inputs and outputs, and name the first call, in
+    call order, whose sums differ between the runs: "<module> (<type>)" if
+    its inputs were equal (the module varies), "an op before <module>" if
+    they were not (a functional op varies), "none" if no call differs."""
+    records = []
+
+    def bits(ts):
+        return sum(int(t.detach().contiguous().view(torch.uint8).sum(dtype=torch.int64))
+                   for t in ts if torch.is_tensor(t) and t.is_floating_point())
+
+    def hook(name):
+        def record(mod, args, out):
+            records.append((name, type(mod).__name__, bits(args), bits(tensors_of(out))))
+        return record
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules()
+               if not any(True for _ in m.children())]
+    try:
+        runs = []
+        for _ in range(2):
+            records.clear()
+            fn(*inputs)
+            torch.cuda.synchronize()
+            runs.append(list(records))
+    finally:
+        for h in handles:
+            h.remove()
+    for (name, kind, a_in, a_out), (_, _, b_in, b_out) in zip(*runs):
+        if a_in != b_in:
+            return f"an op before {name}"
+        if a_out != b_out:
+            return f"{name} ({kind})"
+    return "none"
+
+
+def plane_depth(K, tx, h, w):
+    """The plane's depth [h, w] in a camera with intrinsics K at x = tx,
+    pixel centres at +0.5 (the fusion's convention)."""
+    import numpy as np
+
+    z0, b, c = PIPE_PLANE
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64) + 0.5
+    rx, ry = (u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1]
+    return ((z0 - b * tx) / (1.0 - b * rx - c * ry)).astype(np.float32)
+
+
+def write_dtu_scan(root, views=PIPE_VIEWS, img_hw=None, seed=0):
+    """A DTU-layout test scan under `root`, by the port's writers:
+    dtu/scan1/pair.txt (every other view a source), dtu/scan1/images/*.jpg
+    (PNG bytes: the plane's texture seen by each camera, with noise),
+    dtu/scan1/cams/*_cam.txt (intrinsics at the image's size, which the
+    dataset quarters for stage 2; depth_min 425, interval 2.5, 192 depths) and Depths_raw/scan1 (the plane's depth and a
+    mask without a 4% border). Returns the dataset root, root/dtu."""
+    import numpy as np
+
+    from mvsformer_torch.utils.cams import CameraParams, write_cam_file
+    from mvsformer_torch.utils.image import write_png
+    from mvsformer_torch.utils.pfm import save_pfm
+
+    h, w = img_hw or PIPE_IMG_HW
+    f = PIPE_FOCAL * w / 1600
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    data = os.path.join(root, "dtu")
+    scan, gt = os.path.join(data, "scan1"), os.path.join(root, "Depths_raw", "scan1")
+    for d in (os.path.join(scan, "images"), os.path.join(scan, "cams"), gt):
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(scan, "pair.txt"), "w") as fp:
+        fp.write(f"{views}\n")
+        for ref in range(views):
+            srcs = sorted((v for v in range(views) if v != ref), key=lambda v: abs(v - ref))
+            fp.write(f"{ref}\n{len(srcs)} " + " ".join(f"{s} {100 - abs(s - ref)}" for s in srcs)
+                     + "\n")
+    rng = np.random.default_rng(seed)
+    v_, u_ = np.mgrid[0:h, 0:w] + 0.5
+    border = max(1, int(0.04 * min(h, w)))
+    mask = np.zeros((h, w), np.uint8)
+    mask[border:-border, border:-border] = 255
+    for v in range(views):
+        tx = v * PIPE_BASELINE
+        z = plane_depth(K, tx, h, w).astype(np.float64)
+        xw, yw = (u_ - K[0, 2]) / K[0, 0] * z - tx, (v_ - K[1, 2]) / K[1, 1] * z
+        tex = np.stack([np.sin(xw / 6.0) + np.cos(yw / 9.0), np.sin((xw + yw) / 11.0),
+                        np.cos(xw / 17.0) * np.sin(yw / 5.0)], -1)
+        img = 128 + 50 * tex + rng.normal(0, 6, tex.shape)
+        write_png(os.path.join(scan, "images", f"{v:0>8}.jpg"),
+                  np.clip(img, 0, 255).astype(np.uint8))
+        ext = np.eye(4, dtype=np.float32)
+        ext[0, 3] = tx
+        write_cam_file(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"),
+                       CameraParams(ext, K.astype(np.float32), 425.0, 2.5, 192.0))
+        save_pfm(os.path.join(gt, f"depth_map_{v:0>4}.pfm"), z.astype(np.float32))
+        write_png(os.path.join(gt, f"depth_visual_{v:0>4}.png"), mask)
+    return data
+
+
+def write_png_filtered(path, img, row_filter=None):
+    """RGB uint8 [H, W, 3] -> an 8-bit PNG whose rows all take `row_filter`
+    (0-4: None, Sub, Up, Average, Paeth) or, if it is None, each the filter
+    with the least sum of |byte as a signed char|, the heuristic libpng (and
+    so OpenCV and PIL) uses by default. Returns the number of rows that took
+    each filter."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, ch = img.shape
+    x = img.reshape(h, w * ch).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, ch:] = x[:, :-ch]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, ch:] = x[:-1, :-ch]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cands = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 255
+    if row_filter is None:
+        choice = np.where(cands >= 128, 256 - cands, cands).sum(axis=2).argmin(axis=0)
+    else:
+        choice = np.full(h, row_filter)
+    rows = np.empty((h, 1 + w * ch), np.uint8)
+    rows[:, 0] = choice
+    rows[:, 1:] = cands[choice, np.arange(h)]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+    return np.bincount(choice, minlength=5).tolist()
+
+
+def host_steps(png, root):
+    """Host ms of one view's steps in save_depth, each the mean of 3 after
+    one untimed run: the PNG decode, the bilinear resize to H x W, the
+    normalisation, and the writes of its depth (PFM), confidence (npy) and
+    image (PNG). Then the decoder's two paths on the same image: the decode
+    of a copy whose rows take libpng's adaptive filters and of one whose
+    rows are all Paeth (the wavefront path), and the unfiltering alone of
+    the port's Up-filtered rows by the row path and by the wavefront.
+    Returns (ms by step, rows per filter of the adaptive copy)."""
+    import numpy as np
+
+    from mvsformer_torch.data.augment import normalize
+    from mvsformer_torch.utils import image
+    from mvsformer_torch.utils.image import read_image, resize_bilinear_u8, write_png
+    from mvsformer_torch.utils.pfm import save_pfm
+
+    img = read_image(png)
+    small = resize_bilinear_u8(img, (H, W)).numpy()
+    depth = np.full((H, W), 600.0, np.float32)
+    adaptive, paeth = os.path.join(root, "adaptive.png"), os.path.join(root, "paeth.png")
+    filters = write_png_filtered(adaptive, img)
+    write_png_filtered(paeth, img, row_filter=4)
+    for copy in (adaptive, paeth):
+        if not np.array_equal(read_image(copy), img):
+            raise RuntimeError(f"{copy} decodes to another image")
+    up_rows = np.empty_like(img)
+    up_rows[0], up_rows[1:] = img[0], img[1:] - img[:-1]
+    up = np.full(img.shape[0], 2, np.uint8)
+    steps = {
+        "decode": lambda: read_image(png),
+        "resize": lambda: resize_bilinear_u8(img, (H, W)),
+        "normalise": lambda: normalize(small.astype(np.float32) / 255.0),
+        "write pfm": lambda: save_pfm(os.path.join(root, "t.pfm"), depth),
+        "write npy": lambda: np.save(os.path.join(root, "t.npy"), depth),
+        "write png": lambda: write_png(os.path.join(root, "t.png"), small),
+        "decode adaptive": lambda: read_image(adaptive),
+        "decode paeth": lambda: read_image(paeth),
+        "unfilter up, rows": lambda: image._unfilter_rows(up_rows, up),
+        "unfilter up, wavefront": lambda: image._unfilter_wavefront(up_rows, up),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        out[name] = (time.perf_counter() - t0) / 3 * 1e3
+    return out, filters
+
+
+def plane_folder(saved_scan, folder):
+    """A copy of save_depth's scan folder whose depth maps are the plane's
+    exact depths (from the saved cameras) and whose confidences are 1."""
+    import shutil
+
+    import numpy as np
+
+    from mvsformer_torch.utils.cams import read_cam_file
+    from mvsformer_torch.utils.pfm import read_pfm, save_pfm
+
+    shutil.copytree(saved_scan, folder)
+    for name in sorted(os.listdir(os.path.join(folder, "cams"))):
+        vid = name[:8]
+        cam = read_cam_file(os.path.join(folder, "cams", name))
+        h, w = read_pfm(os.path.join(folder, "depth_est", f"{vid}.pfm"))[0].shape
+        save_pfm(os.path.join(folder, "depth_est", f"{vid}.pfm"),
+                 plane_depth(cam.intrinsic.astype(np.float64), float(cam.extrinsic[0, 3]), h, w))
+        np.save(os.path.join(folder, "confidence", f"{vid}.npy"), np.ones((h, w), np.float32))
+    return folder
+
+
+def save_depth_card_vs_cpu(torch, root, device="cuda"):
+    """save_depth at PIPE_SMALL on the card (`device`) and, with the same
+    weights, on the CPU: {artifact: worst error} over every view (depth and confidence
+    max |card - cpu|; cams and images 0 when their bytes are equal, else
+    inf)."""
+    import copy
+
+    import numpy as np
+
+    from mvsformer_torch.config import ModelConfig
+    from mvsformer_torch.infer import save_depth
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.utils.pfm import read_pfm
+
+    s = PIPE_SMALL
+    data = write_dtu_scan(os.path.join(root, "small"), views=s["views"], img_hw=s["img_hw"])
+    cpu_model = build_model(ModelConfig(ndepths=s["ndepths"]), device="cpu")
+    random_init_(cpu_model, torch.Generator().manual_seed(3))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    out = {}
+    for dev, model in (("cuda", card_model), ("cpu", cpu_model)):
+        out[dev] = os.path.join(root, f"small_{dev}")
+        save_depth(model, ["scan1"], data, out[dev], num_view=s["num_view"],
+                   ndepths=s["depths"], max_h=s["max_hw"][0], max_w=s["max_hw"][1],
+                   device=device if dev == "cuda" else "cpu", logger=lambda *a: None)
+    errs = {"depth": 0.0, "confidence": 0.0, "cams": 0.0, "images": 0.0, "depth_metric": 0.0}
+
+    def raw(dev, *parts):
+        with open(os.path.join(out[dev], *parts), "rb") as fp:
+            return fp.read()
+
+    for v in range(s["views"]):
+        vid = f"{v:0>8}"
+        a, b = (read_pfm(os.path.join(out[d], "scan1", "depth_est", f"{vid}.pfm"))[0]
+                for d in ("cuda", "cpu"))
+        errs["depth"] = max(errs["depth"], float(np.abs(a - b).max()))
+        a, b = (np.load(os.path.join(out[d], "scan1", "confidence", f"{vid}.npy"))
+                for d in ("cuda", "cpu"))
+        errs["confidence"] = max(errs["confidence"], float(np.abs(a - b).max()))
+        for kind, name in (("cams", f"{vid}_cam.txt"), ("images", f"{vid}.jpg")):
+            if raw("cuda", "scan1", kind, name) != raw("cpu", "scan1", kind, name):
+                errs[kind] = float("inf")
+    metrics = [dict(line.split(": ") for line in raw(d, "depth_metric.txt").decode().splitlines())
+               for d in ("cuda", "cpu")]
+    errs["depth_metric"] = max(abs(float(metrics[0][k]) - float(metrics[1][k]))
+                               for k in metrics[1])
+    ok = (errs["depth"] <= E2E_DEPTH_ATOL and errs["confidence"] <= E2E_CONF_ATOL
+          and errs["cams"] == 0 and errs["images"] == 0
+          and errs["depth_metric"] <= PIPE_METRIC_ATOL)
+    return ok, errs
+
+
+def fusion_card_vs_cpu(torch, pair, scan, method, device="cuda"):
+    """Every reference view of `scan` (pair.txt in `pair`) fused on the card
+    and on the CPU:
+    (per view: kept share of the interior on the card, mask agreement, worst
+    point error of |point| where both keep, worst distance from the plane of
+    the card's kept points in the interior, of their depth)."""
+    import numpy as np
+
+    from mvsformer_torch.fuse import FusionDataset, fuse_view, make_fuse_fn
+
+    ds = FusionDataset(pair, scan)
+    fn = make_fuse_fn(method)
+    z0, b, c = PIPE_PLANE
+    rows = []
+    for i in range(len(ds)):
+        s = ds[i]
+        mc, _, pc, _ = fuse_view(s, fn, (0.5,), torch.device(device))
+        mk, _, pk, _ = fuse_view(s, fn, (0.5,), torch.device("cpu"))
+        mc, pc = mc.cpu().numpy(), pc.cpu().numpy()
+        mk, pk = mk.numpy(), pk.numpy()
+        h, w = mc.shape
+        interior = mc[h // 8:h - h // 8, w // 8:w - w // 8]
+        both = mc & mk
+        pt_err = (np.abs(pc[both] - pk[both]).max(axis=1)
+                  / np.linalg.norm(pk[both], axis=1)).max(initial=0.0)
+        inner = np.zeros_like(mc)
+        inner[h // 8:h - h // 8, w // 8:w - w // 8] = True
+        x, y, z = pc[mc & inner].T  # border pixels may average in a blended source sample
+        plane = z0 + b * x + c * y
+        rows.append(dict(view=s["ref_id"], kept_interior=float(interior.mean()),
+                         mask_agree=float((mc == mk).mean()), point_rel_err=float(pt_err),
+                         plane_rel_err=float((np.abs(z - plane) / plane).max(initial=0.0))))
+    return rows
+
+
+def pipeline_phase(torch, card, specs, device="cuda"):
+    """Phase 11, the DTU test pipeline, on the card (`device`). Returns its
+    details."""
+    import shutil
+
+    import numpy as np
+
+    from mvsformer_torch.config import ModelConfig
+    from mvsformer_torch.data.eval_dataset import MVSEvalDataset
+    from mvsformer_torch.data.loader import collate
+    from mvsformer_torch.fuse import fuse_scan
+    from mvsformer_torch.infer import STAGES, make_infer_fn, save_depth
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.utils.image import read_image
+    from mvsformer_torch.utils.pfm import read_pfm
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # 11a. The scan, and the PNG decode of one 1600x1200 image.
+        t0 = time.perf_counter()
+        data = write_dtu_scan(root)
+        write_s = time.perf_counter() - t0
+        png = os.path.join(data, "scan1", "images", "00000000.jpg")
+        host, filters = host_steps(png, root)
+        decode_ms = host["decode"]
+        print(f"pipeline scan: {PIPE_VIEWS} views of {PIPE_IMG_HW[1]}x{PIPE_IMG_HW[0]} PNG "
+              f"({os.path.getsize(png) / 1e6:.2f} MB each), written in {write_s:.1f} s; host ms "
+              f"per view: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+              + f"; the adaptive copy's rows by filter (None, Sub, Up, Average, Paeth): "
+              f"{filters} [{card}]", flush=True)
+
+        # 11b. save_depth on the card at the default ModelConfig, every launch
+        # count set to 0 just before it and read just after.
+        model = build_model(ModelConfig(), device=device)
+        random_init_(model, torch.Generator().manual_seed(0))
+        out = os.path.join(root, "out")
+        kw = dict(num_view=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL, max_h=H, max_w=W,
+                  device=device, logger=lambda *a: None)
+        timings = []
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = save_depth(model, ["scan1"], data, out, timings=timings, **kw)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        for name, spec in specs.items():
+            want = PIPE_VIEWS * spec["per_request"]
+            if launches.get(name, 0) != want:
+                raise RuntimeError(f"{name}: {launches.get(name, 0)} launches in save_depth's "
+                                   f"{PIPE_VIEWS} requests, want {want}")
+        print(f"save_depth launches over {PIPE_VIEWS} requests: "
+              + ", ".join(f"{n} {launches.get(n, 0)}" for n in specs)
+              + f" ({PIPE_VIEWS} x per request)")
+        for i, t in enumerate(timings):
+            print(f"save_depth request {i}: load {t['load_ms']:.1f} ms, forward {t['forward_ms']:.1f}"
+                  f" ms, writes {t['write_ms']:.1f} ms [{card}]")
+        mean = {k: sum(t[k] for t in timings) / len(timings) for k in timings[0]}
+        print(f"save_depth: {total_s:.2f} s for {PIPE_VIEWS} requests, mean load "
+              f"{mean['load_ms']:.1f} / forward {mean['forward_ms']:.1f} / writes "
+              f"{mean['write_ms']:.1f} ms, depth metrics {json.dumps(metrics)} [{card}]", flush=True)
+        if metrics is None or len(metrics) != 7:
+            raise RuntimeError("save_depth wrote no depth metrics for a scan with ground truth")
+
+        # 11c. The same save_depth under torch.profiler: the device's idle share.
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            save_depth(model, ["scan1"], data, os.path.join(root, "out_profiled"), **kw)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, _ = kernel_times(torch, prof)
+        if busy_ms is None:
+            idle = None
+            print(f"profiled save_depth: {prof_wall_ms:.1f} ms wall; device idle share not "
+                  f"measured (the profiler saw no device events)")
+        else:
+            idle = max(0.0, 1 - busy_ms / prof_wall_ms)
+            print(f"profiled save_depth: {prof_wall_ms:.1f} ms wall, {busy_ms:.1f} ms of kernels, "
+                  f"device idle share {idle:.3f} [{card}]", flush=True)
+
+        path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # 11d. View 0 on disk against make_infer_fn on the same sample. With
+        # cuDNN free to pick its algorithms the forward varies from run to run
+        # (the bound is the card-to-CPU one); the op that varies is found by
+        # hooks; with cudnn.deterministic both runs and the saved view must
+        # agree bit for bit.
+        ds = MVSEvalDataset(data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
+                            interval_scale=1.06, max_h=H, max_w=W)
+        batch = collate([ds[0]])
+        inputs = (batch["imgs"], {k: batch["proj_matrices"][k] for k in STAGES},
+                  batch["depth_values"])
+        infer = make_infer_fn(model)
+
+        def view0(folder):
+            return (read_pfm(os.path.join(folder, "scan1", "depth_est", "00000000.pfm"))[0],
+                    np.load(os.path.join(folder, "scan1", "confidence", "00000000.npy")))
+
+        def gaps(a, b):
+            return tuple(float(np.abs(np.asarray(x) - np.asarray(y)).max())
+                         for x, y in zip(a, b))
+
+        def run_infer():
+            d, c, _ = infer(*inputs)
+            return d[0].cpu().numpy(), c[0].cpu().numpy()
+
+        first = run_infer()
+        saved = gaps(view0(out), first)
+        rerun = gaps(run_infer(), first)
+        varying = first_varying_module(torch, model, infer, inputs)
+        print(f"view 0 saved against make_infer_fn: depth {saved[0]:.3e}, confidence "
+              f"{saved[1]:.3e}; make_infer_fn run twice on it: depth {rerun[0]:.3e}, "
+              f"confidence {rerun[1]:.3e} (tolerance {E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g}); "
+              f"the first op whose output varies between two forwards: {varying}", flush=True)
+        if max(saved[0], rerun[0]) > E2E_DEPTH_ATOL or max(saved[1], rerun[1]) > E2E_CONF_ATOL:
+            raise RuntimeError("save_depth's view 0 disagrees with make_infer_fn")
+        det_timings = []
+        torch.backends.cudnn.deterministic = True
+        try:
+            save_depth(model, ["scan1"], data, os.path.join(root, "out_deterministic"),
+                       timings=det_timings, **kw)
+            det_first = run_infer()
+            det_saved = gaps(view0(os.path.join(root, "out_deterministic")), det_first)
+            det_rerun = gaps(run_infer(), det_first)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        det_forward = [t["forward_ms"] for t in det_timings]
+        print(f"with cudnn.deterministic: view 0 saved against make_infer_fn: depth "
+              f"{det_saved[0]:.3e}, confidence {det_saved[1]:.3e}; make_infer_fn run twice: "
+              f"depth {det_rerun[0]:.3e}, confidence {det_rerun[1]:.3e} (exact expected); "
+              f"save_depth forward ms " + ", ".join(f"{t:.1f}" for t in det_forward)
+              + f" [{card}]", flush=True)
+        if max(det_saved + det_rerun) != 0:
+            raise RuntimeError("with cudnn.deterministic, save_depth's view 0 and make_infer_fn "
+                               "are not bit-equal")
+        del model, infer, inputs
+        torch.cuda.empty_cache()
+
+        # 11e. save_depth on the card against the CPU, small shape.
+        ok, small_errs = save_depth_card_vs_cpu(torch, root, device)
+        print(f"save_depth {PIPE_SMALL['max_hw']} on the card against the CPU: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in small_errs.items())
+              + f" (tolerance depth {E2E_DEPTH_ATOL:g}, confidence {E2E_CONF_ATOL:g}, "
+              f"depth_metric {PIPE_METRIC_ATOL:g}, cams and images byte-equal) "
+              + ("ok" if ok else "FAILED"), flush=True)
+        if not ok:
+            raise RuntimeError("save_depth on the card disagrees with the CPU")
+
+        # 11f. Fusion of the plane's exact depths, card against CPU, then
+        # fuse_scan on the card (timed per view).
+        pair = os.path.join(data, "scan1")
+        plane = plane_folder(os.path.join(out, "scan1"), os.path.join(root, "plane"))
+        fusion = {}
+        for method in PIPE_METHODS:
+            rows = fusion_card_vs_cpu(torch, pair, plane, method, device)
+            view_ms = []
+            n = fuse_scan(pair, plane, os.path.join(root, f"plane_{method}.ply"), method=method,
+                          device=device, logger=lambda *a: None, timings=view_ms)
+            keep = min(r["kept_interior"] for r in rows)
+            agree = min(r["mask_agree"] for r in rows)
+            pt = max(r["point_rel_err"] for r in rows)
+            off = max(r["plane_rel_err"] for r in rows)
+            print(f"fusion {method} of the plane, card against CPU: kept share of the interior "
+                  f"{keep:.4f} (min over views; > {PIPE_KEEP_MIN}), mask agreement {agree:.6f} "
+                  f"(>= {PIPE_MASK_AGREE}), points {pt:.2e} of |point| (<= {PIPE_POINT_RTOL:g}), "
+                  f"off the plane {off:.2e} of its depth (<= {PIPE_PLANE_RTOL:g}); {n} points",
+                  flush=True)
+            print(f"fusion {method} ms per reference view (load, fuse): "
+                  + ", ".join(f"{t['load_ms']:.1f}/{t['fuse_ms']:.1f}" for t in view_ms)
+                  + f" [{card}]")
+            if keep <= PIPE_KEEP_MIN or agree < PIPE_MASK_AGREE or pt > PIPE_POINT_RTOL \
+                    or off > PIPE_PLANE_RTOL or n == 0:
+                raise RuntimeError(f"fusion {method} of the plane failed its checks: {rows}")
+            fusion[method] = dict(views=rows, view_ms=view_ms, points=n)
+
+        # 11g. Fusion of the random weights' depth maps, as a smoke run. Their
+        # confidences lie far below the default threshold of 0.5, so the
+        # consistency check alone decides here.
+        smoke = {}
+        for method in PIPE_METHODS:
+            ply = os.path.join(root, f"random_{method}.ply")
+            smoke[method] = fuse_scan(pair, os.path.join(out, "scan1"), ply, method=method,
+                                      prob_threshold=(0.0,), device=device,
+                                      logger=lambda *a: None)
+            if not os.path.exists(ply):
+                raise RuntimeError(f"fusion {method}: no PLY")
+        print("fusion of the random weights' depths (confidence threshold 0): "
+              + ", ".join(f"{m} {n} points" for m, n in smoke.items()))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f"pipeline phase peak memory {peak_gb:.3f} GB; over save_depth's two runs "
+              f"(11b, 11c) {path_peak_gb:.3f} GB [{card}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"requests": timings, "save_depth_s": total_s, "launches": launches,
+            "host_ms_per_view": host, "adaptive_filters": filters, "view0_rerun": rerun, "first_varying_op": varying,
+            "metrics": metrics, "profiled_wall_ms": prof_wall_ms, "profiled_kernel_ms": busy_ms,
+            "idle_share": idle, "view0": {"depth": saved[0], "confidence": saved[1]},
+            "deterministic": {"view0": det_saved, "rerun": det_rerun,
+                              "forward_ms": det_forward},
+            "small_card_vs_cpu": small_errs, "fusion": fusion, "smoke_points": smoke,
+            "png_decode_ms": decode_ms, "peak_memory_gb": peak_gb,
+            "save_depth_peak_memory_gb": path_peak_gb}
+
+
 def main() -> int:
     import torch
 
@@ -979,35 +1563,35 @@ def main() -> int:
             kernel=warp_corr.warp_group_corr, plain=warp_corr.warp_group_corr_plain,
             owner=stagenet, per_request=nstages, cost=k1_cost, compare=compare_k1,
             route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
-            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325"),
+            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325", bitwise=True),
         "visibility_net": dict(
             kernel=vis_net.visibility_net, plain=vis_net.visibility_net_plain,
             owner=stagenet, per_request=nstages, cost=k2_cost, compare=compare_k2,
             route="cuda", source="mvsformer_torch/csrc/vis_net.cu",
-            replaces="mvsformer_tpu/ops/pallas/vis_net.py:192"),
+            replaces="mvsformer_tpu/ops/pallas/vis_net.py:192", bitwise=True),
         "depth_decode": dict(
             kernel=stage_tail.depth_decode, plain=stage_tail.depth_decode_plain,
             owner=stagenet, per_request=nstages, cost=k3_cost, compare=compare_k3,
             route="cuda", source="mvsformer_torch/csrc/depth_decode.cu",
-            replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57"),
+            replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57", bitwise=True),
         "encoder_head": dict(
             kernel=encoder_head.encoder_head, plain=encoder_head.encoder_head_plain,
             owner=fpn, per_request=1, cost=k4_cost,
             compare=rel_compare(K4_RTOL_OF_SCALE, ("conv01", "down0")),
             route="cuda", source="mvsformer_torch/csrc/encoder_head.cu",
-            replaces="mvsformer_tpu/ops/pallas/encoder_head.py:213"),
+            replaces="mvsformer_tpu/ops/pallas/encoder_head.py:213", bitwise=True),
         "fpn_level": dict(
             kernel=fpn_level.fpn_level, plain=fpn_level.fpn_level_plain,
             owner=fpn, per_request=3, cost=k5_cost,
             compare=rel_compare(K5_RTOL_OF_SCALE, ("out", "intra'")),
             route="cuda", source="mvsformer_torch/csrc/fpn_level.cu",
-            replaces="mvsformer_tpu/ops/pallas/fpn_final.py:212"),
+            replaces="mvsformer_tpu/ops/pallas/fpn_final.py:212", bitwise=True),
         "gsa_attention": dict(
             kernel=gsa_attention.gsa_attention, plain=gsa_attention.gsa_attention_plain,
             owner=twins, per_request=sum(d // 2 for d in model.vit.depths), cost=k6_cost,
             compare=rel_compare(K6_RTOL_OF_SCALE, ("out",)), library=sdpa,
             route="cuda", source="mvsformer_torch/csrc/gsa_attention.cu",
-            replaces="mvsformer_tpu/ops/pallas/gsa_attention.py:68"),
+            replaces="mvsformer_tpu/ops/pallas/gsa_attention.py:68", bitwise=True),
     }
 
     # 4a. Warm-up request.
@@ -1156,6 +1740,10 @@ def main() -> int:
     train = training_phase(torch, card, eval_kernels=tuple(specs))
     kernels += train.pop("kernels")
 
+    # 11. The DTU test pipeline.
+    torch.cuda.empty_cache()
+    pipeline = pipeline_phase(torch, card, specs)
+
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
@@ -1169,6 +1757,7 @@ def main() -> int:
         "e2e_small_errors": e2e,
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
         "training": train,
+        "pipeline": pipeline,
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,13 +1,35 @@
-"""Eval forward for serving depth maps.
+"""Phase 1 of the test pipeline: serve depth maps and save them for fusion.
 
-Port of `make_infer_fn` from `mvsformer_tpu/infer.py` (single device; the
-mesh form, `save_depth`, the eval dataset and fusion come with later
-slices).
+Port of `mvsformer_tpu/infer.py` on one device: `make_infer_fn` (the eval
+forward) and `save_depth` (the loop over a scan list that writes
+`depth_est/*.pfm`, `confidence/*.npy`, `cams/*_cam.txt`, `images/*.jpg` and,
+where ground truth is there, `depth_metric.txt`). The mesh form (several
+devices) comes with ROADMAP A5.
+
+`images/*.jpg` keeps the JAX package's file name but holds PNG bytes (the
+port has no JPEG codec): the reference image is saved without loss, and a
+reader that sniffs the content, as `cv2.imread` and the port's `read_image`
+do, reads it under either name.
 """
 
 from __future__ import annotations
 
+import os
+import time
+
+import numpy as np
 import torch
+
+from mvsformer_torch import resolve_device
+from mvsformer_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+from mvsformer_torch.data.eval_dataset import MVSEvalDataset
+from mvsformer_torch.data.loader import eval_loader
+from mvsformer_torch.utils import metrics as metric_lib
+from mvsformer_torch.utils.cams import CameraParams, write_cam_file
+from mvsformer_torch.utils.image import resize_nearest, write_png
+from mvsformer_torch.utils.pfm import save_pfm
+
+STAGES = ("stage1", "stage2", "stage3", "stage4")
 
 
 def make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0)):
@@ -35,3 +57,103 @@ def make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0)):
         return out["refined_depth"], out["photometric_confidence"], stage_confs
 
     return fn
+
+
+def _on(model, device: torch.device) -> None:
+    at = next(model.parameters()).device
+    if at.type != device.type or (device.index is not None and at.index != device.index):
+        raise ValueError(f"the model is on {at}, not on {device}: build it there")
+
+
+def save_depth(model, testlist, datapath, outdir, num_view=5, ndepths=192,
+               interval_scale=1.06, max_h=1152, max_w=1536, tmps=(5.0, 5.0, 5.0, 1.0),
+               dataset="dtu", batch_size=1, combine_conf=True, use_short_range=False,
+               mesh=None, device=None, logger=print, timings=None):
+    """Run the model (already on `device`: `cuda` unless the caller asks for
+    the CPU) over every reference view of every scan in `testlist` and write
+    its artifacts under `outdir`. Returns the averaged depth metrics where
+    the scans have ground truth, else None.
+
+    Each request is read, run and written in turn: the JAX version's overlap
+    of one request's readback and writes with the next forward is not ported
+    (ROADMAP B). With a list as `timings`, each request appends its host ms:
+    "load_ms" (the dataset), "forward_ms" (inputs to the device, the
+    forward, the metrics, and the outputs back to the host) and "write_ms"
+    (the files)."""
+    if mesh is not None:
+        raise NotImplementedError("save_depth over a mesh of devices is not ported yet "
+                                  "(ROADMAP A5)")
+    dev = resolve_device(device)
+    _on(model, dev)
+    infer = make_infer_fn(model, tmps)
+    ds = MVSEvalDataset(datapath, testlist, nviews=num_view, ndepths=ndepths,
+                        interval_scale=interval_scale, max_h=max_h, max_w=max_w,
+                        dataset=dataset, use_short_range=use_short_range)
+    loader = iter(eval_loader(ds, batch_size=batch_size))
+
+    metric_sum: dict = {}
+    metric_count = n_batches = 0
+    t_start = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        batch = next(loader, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        projs = {k: v for k, v in batch["proj_matrices"].items() if k in STAGES}
+        depth, conf, stage_confs = infer(batch["imgs"], projs, batch["depth_values"])
+        dv = batch["depth_values"]
+        if "depth_gt" in batch:
+            di = float(dv[0, 1] - dv[0, 0]) / 2.65
+            gt = torch.as_tensor(batch["depth_gt"], device=dev)
+            mask = torch.as_tensor(batch["mask"], device=dev) > 0.5
+            for k, v in metric_lib.depth_metrics(depth, gt, mask, di).items():
+                metric_sum[k] = metric_sum.get(k, 0.0) + float(v)
+            metric_count += 1
+        if not combine_conf:
+            h, w = depth.shape[1:]
+            conf = torch.stack([torch.stack([resize_nearest(c[b], (h, w)) for c in stage_confs])
+                                for b in range(depth.shape[0])])
+        depth, conf = depth.cpu().numpy(), conf.cpu().numpy()
+        t2 = time.perf_counter()
+        _write_artifacts(outdir, batch, depth, conf, ndepths)
+        t3 = time.perf_counter()
+        n_batches += 1
+        if timings is not None:
+            timings.append({"load_ms": (t1 - t0) * 1e3, "forward_ms": (t2 - t1) * 1e3,
+                            "write_ms": (t3 - t2) * 1e3})
+
+    total = time.perf_counter() - t_start
+    logger(f"avg time per batch: {total / max(n_batches, 1):.3f}s over {n_batches} batches "
+           f"(read, forward and write in turn)")
+    if metric_count:
+        metrics = {k: v / metric_count for k, v in metric_sum.items()}
+        with open(os.path.join(outdir, "depth_metric.txt"), "w") as f:
+            for k, v in metrics.items():
+                f.write(f"{k}: {v}\n")
+        logger(f"depth metrics: {metrics}")
+        return metrics
+    return None
+
+
+def _write_artifacts(outdir, batch, depth, conf, ndepths):
+    dv = batch["depth_values"]
+    for b, filename in enumerate(batch["filename"]):
+        paths = {kind: os.path.join(outdir, filename.format(kind, ext)) for kind, ext in (
+            ("depth_est", ".pfm"), ("confidence", ".npy"), ("cams", "_cam.txt"),
+            ("images", ".jpg"))}
+        for p in paths.values():
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+        save_pfm(paths["depth_est"], depth[b])
+        np.save(paths["confidence"], conf[b])
+        ref = batch["proj_matrices"]["stage4"][b, 0]
+        write_cam_file(paths["cams"], CameraParams(
+            extrinsic=np.asarray(ref[0]),
+            intrinsic=np.asarray(ref[1, :3, :3]),
+            depth_min=float(dv[b, 0]),
+            depth_interval=float(dv[b, 1] - dv[b, 0]),
+            num_depth=float(ndepths),
+            depth_max=float(dv[b, -1]),
+        ))
+        img = np.asarray(batch["imgs"][b, 0]) * IMAGENET_STD + IMAGENET_MEAN
+        write_png(paths["images"], np.clip(img * 255, 0, 255).astype(np.uint8))

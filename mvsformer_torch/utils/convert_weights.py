@@ -15,7 +15,8 @@ arrays and lays each tensor out for torch:
   running_var.
 
 Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
-the whole TwinMVSNet.
+the whole TwinMVSNet. `load_reference_checkpoint` loads a reference `.pth`
+as it is, since the names already agree.
 """
 
 from __future__ import annotations
@@ -191,3 +192,18 @@ def convert_flax_grads(grads, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
     buffers = {k: v for k, v in sd.items()
                if k.endswith(BUFFER_SUFFIXES) and not k.endswith(".num_batches_tracked")}
     return params, buffers
+
+
+def load_reference_checkpoint(path: str, model) -> None:
+    """Load a reference MVSFormer checkpoint (a torch `.pth` holding
+    {'state_dict': ...} or the state dict itself; a `module.` prefix, as
+    DataParallel saves it, is stripped) into the port's TwinMVSNet. The
+    port's modules carry the reference's names, so the load is strict."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+    sd = {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
+    if "decoder_vit.attn.conv_l.0.weight" in sd:
+        raise NotImplementedError(
+            "a DINOMVSNet (MVSFormer-P) checkpoint: the port has no DINOMVSNet yet "
+            "(ROADMAP A6)")
+    model.load_state_dict(sd, strict=True)

@@ -7,6 +7,8 @@ runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +31,9 @@ from mvsformer_torch.ops.warp_corr import (warp_corr_fwd, warp_corr_fwd_plain, w
                                            warp_group_corr_plain)
 from mvsformer_torch.ops.warp_corr_train import (WarpCorrTrain, warp_corr_bwd,
                                                  warp_corr_bwd_plain)
+from mvsformer_torch.utils.cams import read_cam_file, write_cam_file
+from mvsformer_torch.utils.image import read_image, write_png
+from mvsformer_torch.utils.pfm import save_pfm
 
 pytestmark = pytest.mark.cuda
 
@@ -608,3 +613,50 @@ def test_training_warp_raises_instead_of_falling_back(dev):
         warp_corr_bwd(ref, src, sp, rp, dv, dcorr.double())
     with pytest.raises(ValueError):  # a CPU cotangent
         warp_corr_bwd(ref, src, sp, rp, dv, dcorr.cpu())
+
+
+def test_save_depth_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The whole of save_depth (dataset, forward with K1-K6, metrics, the
+    stacked confidences' nearest resize, the writes) at chip_smoke.py's small
+    shape: depth and confidence within the forward's card-to-CPU bounds,
+    cams and images byte-equal."""
+    import chip_smoke
+
+    ok, errs = chip_smoke.save_depth_card_vs_cpu(torch, str(tmp_path), dev.type)
+    assert ok, errs
+
+
+@pytest.mark.parametrize("method", ["pcd", "dpcd", "gipuma"])
+def test_fuse_scan_on_the_card_matches_the_cpu(dev, tmp_path, method):
+    """Fusion of a plane's exact depth maps (chip_smoke.py's scene at
+    150x225, 6 views) on the card and on the CPU: the same masks but for at
+    most 1e-4 of the pixels, the same points where both keep, nearly all of
+    the interior kept, and the points on the plane."""
+    import chip_smoke
+    from mvsformer_torch.fuse import fuse_scan
+    from mvsformer_torch.utils.ply import read_ply
+
+    data = chip_smoke.write_dtu_scan(str(tmp_path), img_hw=(150, 225))
+    pair = os.path.join(data, "scan1")
+    plane = str(tmp_path / "plane")
+    saved = str(tmp_path / "saved")
+    for sub in ("depth_est", "confidence", "cams", "images"):
+        os.makedirs(os.path.join(saved, sub))
+    for v in range(chip_smoke.PIPE_VIEWS):
+        vid = f"{v:0>8}"
+        cam = read_cam_file(os.path.join(pair, "cams", f"{vid}_cam.txt"))
+        write_cam_file(os.path.join(saved, "cams", f"{vid}_cam.txt"), cam)
+        save_pfm(os.path.join(saved, "depth_est", f"{vid}.pfm"), np.zeros((150, 225), np.float32))
+        np.save(os.path.join(saved, "confidence", f"{vid}.npy"), np.zeros((150, 225), np.float32))
+        write_png(os.path.join(saved, "images", f"{vid}.jpg"),
+                  read_image(os.path.join(pair, "images", f"{vid}.jpg")))
+    chip_smoke.plane_folder(saved, plane)
+    rows = chip_smoke.fusion_card_vs_cpu(torch, pair, plane, method, dev.type)
+    assert min(r["kept_interior"] for r in rows) > chip_smoke.PIPE_KEEP_MIN
+    assert min(r["mask_agree"] for r in rows) >= chip_smoke.PIPE_MASK_AGREE
+    assert max(r["point_rel_err"] for r in rows) <= chip_smoke.PIPE_POINT_RTOL
+    assert max(r["plane_rel_err"] for r in rows) <= chip_smoke.PIPE_PLANE_RTOL
+    n = fuse_scan(pair, plane, str(tmp_path / "x.ply"), method=method, device=dev,
+                  logger=lambda *a: None)
+    points, colors = read_ply(str(tmp_path / "x.ply"))
+    assert n == points.shape[0] > 0 and colors.shape == points.shape

@@ -1,7 +1,9 @@
 """Guard tests for the PyTorch port's boundaries.
 
 `mvsformer_torch` imports torch, never JAX, flax or the JAX package (not
-even its JAX-free modules), nor Triton, and neither does `chip_smoke.py`. Its entry
+even its JAX-free modules), nor Triton, nor an image library (OpenCV, PIL,
+torchvision: the machine with the card has none, so the port keeps its own
+codecs), and neither does `chip_smoke.py`. Its entry
 points run on CUDA unless the caller asks for the CPU, and raise when CUDA
 is asked for and absent.
 """
@@ -27,6 +29,12 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvsformer_tpu")
+IMAGE_LIBRARIES = ("cv2", "PIL", "torchvision")
+# The test pipeline's modules (save_depth, the eval data, fusion, the CLI),
+# each beside its JAX counterpart's name.
+PIPELINE_MODULES = ("utils.pfm", "utils.cams", "utils.ply", "utils.image", "data.augment",
+                    "data.scan_lists", "data.eval_dataset", "data.loader", "utils.metrics",
+                    "ops.fusion", "utils.convert_weights", "infer", "fuse", "test")
 
 
 def port_files():
@@ -78,6 +86,41 @@ def test_no_port_file_imports_triton(path):
     names += [node.module or "" for node in ast.walk(tree)
               if isinstance(node, ast.ImportFrom) and node.level == 0]
     assert not [n for n in names if n.split(".")[0] == "triton"], f"{path} imports triton"
+
+
+def imported_names(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = [a.name for node in ast.walk(tree) if isinstance(node, ast.Import)
+             for a in node.names]
+    return names + [node.module or "" for node in ast.walk(tree)
+                    if isinstance(node, ast.ImportFrom) and node.level == 0]
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_file_imports_an_image_library(path):
+    bad = [n for n in imported_names(path) if n.split(".")[0] in IMAGE_LIBRARIES]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_the_pipeline_modules_are_among_the_port_files():
+    files = set(port_files())
+    for name in PIPELINE_MODULES:
+        path = os.path.join(REPO, "mvsformer_torch", *name.split(".")) + ".py"
+        assert path in files, name
+
+
+def test_importing_the_pipeline_leaves_image_libraries_out_of_sys_modules():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PIPELINE_MODULES!r}:\n"
+        "    importlib.import_module('mvsformer_torch.' + m)\n"
+        "import chip_smoke\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {IMAGE_LIBRARIES + FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
 
 
 def test_build_model_without_device_raises_when_cuda_is_absent(monkeypatch):
