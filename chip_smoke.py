@@ -92,8 +92,36 @@ Phases (any failure exits non-zero, and no result line is printed):
    and gipuma on the card and on the CPU (kept share of the interior, mask
    agreement, points, distance from the plane; fusion ms per view), then
    the random weights' depth maps into a PLY as a smoke run.
-12. Print one JSON line of per-kernel numbers, then, last, the result line
-   {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+12. The training run as a user runs it: `python -m mvsformer_torch.train
+   --config configs/config_mvsformer.json` (as it ships: the default
+   ModelConfig, batch 8, 5 views, 192 depths, the 25 crop sizes and the
+   scale-batch map, augmentation, 4 loader threads; only the data paths,
+   1 epoch, a model_step every 2 steps and a log line every step are
+   set) on a synthetic DTU training tree written by the port's writers:
+   one scan of 6 views x 7 lights of the tilted plane, 1600x1200 PNG whose
+   rows take libpng's adaptive filters, cam files and Depths_raw. 5 steps
+   at the 5 largest crop sizes (1024x1280 first, 8 micro-batches of 1),
+   a `--profile_dir` window of steps 2-3, validation over the 42 samples
+   (6 batches, B=8 and B=2, 512x640). Then `--resume` with 2 epochs (5
+   more steps and a validation), then `python -m mvsformer_torch.test
+   --which_ckpt model_best` on phase 11's eval scan. Each step must show a
+   finite loss, the barrels' crop size, K7/K8 4 launches a micro-batch and
+   K1-K6 none; each validation K1-K6 at their per-request counts a batch;
+   model_best, model_last, model_step and their sidecars must be written;
+   the resume must start at epoch 2, global step 5, at LR schedule(5);
+   model_last restored in this process must equal the file bit for bit;
+   the test CLI's view 0 must match `make_infer_fn` of the restored model
+   within the card-to-CPU bounds. Prints per step its ms, crop, micro-
+   batches and loader wait; load ms per sample, validation ms per batch,
+   checkpoint ms and bytes, peak memory, the profile window's idle share.
+   Then K1-K6 are held against their plain versions on one validation batch
+   (B=8, 512x640) and K7/K8 on one training micro-batch at 1024x1280; and
+   at each of the 25 crop sizes one training micro-batch and one eval
+   forward of 1 sample run, all outputs finite. Each kernel's entry of the
+   kernels line adds these checks and the CLI runs' launches.
+13. Print one JSON line of per-kernel numbers, then, last, the result line
+   {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
+   the CLI runs' output to chiprun_out/training_run_*.log.
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
@@ -765,6 +793,73 @@ def compare_steps(torch, card_model, cpu_model, before, card_metrics, cpu_metric
     return ok, errs, lines
 
 
+def eval_kernel_specs(model):
+    """K1-K6: each kernel's wrapper and plain version, the module whose
+    global the model calls it through, its launches per request of `model`,
+    its cost, check and row."""
+    from mvsformer_torch.models import fpn, stagenet, twins
+    from mvsformer_torch.ops import (encoder_head, fpn_level, gsa_attention, stage_tail, vis_net,
+                                     warp_corr)
+
+    nstages = len(model.fusions)
+    return {
+        "warp_group_corr": dict(
+            kernel=warp_corr.warp_group_corr, plain=warp_corr.warp_group_corr_plain,
+            owner=stagenet, per_request=nstages, cost=k1_cost, compare=compare_k1,
+            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325", bitwise=True),
+        "visibility_net": dict(
+            kernel=vis_net.visibility_net, plain=vis_net.visibility_net_plain,
+            owner=stagenet, per_request=nstages, cost=k2_cost, compare=compare_k2,
+            route="cuda", source="mvsformer_torch/csrc/vis_net.cu",
+            replaces="mvsformer_tpu/ops/pallas/vis_net.py:192", bitwise=True),
+        "depth_decode": dict(
+            kernel=stage_tail.depth_decode, plain=stage_tail.depth_decode_plain,
+            owner=stagenet, per_request=nstages, cost=k3_cost, compare=compare_k3,
+            route="cuda", source="mvsformer_torch/csrc/depth_decode.cu",
+            replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57", bitwise=True),
+        "encoder_head": dict(
+            kernel=encoder_head.encoder_head, plain=encoder_head.encoder_head_plain,
+            owner=fpn, per_request=1, cost=k4_cost,
+            compare=rel_compare(K4_RTOL_OF_SCALE, ("conv01", "down0")),
+            route="cuda", source="mvsformer_torch/csrc/encoder_head.cu",
+            replaces="mvsformer_tpu/ops/pallas/encoder_head.py:213", bitwise=True),
+        "fpn_level": dict(
+            kernel=fpn_level.fpn_level, plain=fpn_level.fpn_level_plain,
+            owner=fpn, per_request=3, cost=k5_cost,
+            compare=rel_compare(K5_RTOL_OF_SCALE, ("out", "intra'")),
+            route="cuda", source="mvsformer_torch/csrc/fpn_level.cu",
+            replaces="mvsformer_tpu/ops/pallas/fpn_final.py:212", bitwise=True),
+        "gsa_attention": dict(
+            kernel=gsa_attention.gsa_attention, plain=gsa_attention.gsa_attention_plain,
+            owner=twins, per_request=sum(d // 2 for d in model.vit.depths), cost=k6_cost,
+            compare=rel_compare(K6_RTOL_OF_SCALE, ("out",)), library=sdpa,
+            route="cuda", source="mvsformer_torch/csrc/gsa_attention.cu",
+            replaces="mvsformer_tpu/ops/pallas/gsa_attention.py:68", bitwise=True),
+    }
+
+
+def train_kernel_specs(per_step):
+    """K7 and K8: their wrappers, plain versions, checks and rows, and the
+    module whose globals the training Function calls them through."""
+    from mvsformer_torch.ops import warp_corr, warp_corr_train
+
+    return {
+        "warp_corr_fwd": dict(
+            kernel=warp_corr.warp_corr_fwd, plain=warp_corr.warp_corr_fwd_plain,
+            owner=warp_corr_train, per_step=per_step, cost=k7_cost,
+            compare=rel_compare(K7_RTOL_OF_SCALE, ("corr",)),
+            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:694"),
+        "warp_corr_bwd": dict(
+            kernel=warp_corr_train.warp_corr_bwd, plain=warp_corr_train.warp_corr_bwd_plain,
+            owner=warp_corr_train, per_step=per_step, cost=k8_cost,
+            compare=rel_compare(K8_RTOL_OF_SCALE, ("dref", "dsrc"), floor=0.0),
+            route="cuda", source="mvsformer_torch/csrc/warp_corr_bwd.cu",
+            replaces="mvsformer_tpu/ops/pallas/warp_corr_bwd.py:197"),
+    }
+
+
 def training_phase(torch, card, eval_kernels):
     """Phases 8-10. Returns the details, with the K7/K8 rows of the kernels
     line under "kernels"."""
@@ -772,7 +867,7 @@ def training_phase(torch, card, eval_kernels):
 
     from mvsformer_torch.config import Config
     from mvsformer_torch.models.mvsformer import build_model, random_init_
-    from mvsformer_torch.ops import cuda_build, warp_corr, warp_corr_train
+    from mvsformer_torch.ops import cuda_build
     from mvsformer_torch.train.step import TrainStep
 
     cfg = Config()
@@ -781,20 +876,7 @@ def training_phase(torch, card, eval_kernels):
         raise RuntimeError("the default DataConfig no longer gives the training shape")
     n_micro = TRAIN_B // TRAIN_MICRO
     nstages = len(cfg.arch.ndepths)
-    specs = {
-        "warp_corr_fwd": dict(
-            kernel=warp_corr.warp_corr_fwd, plain=warp_corr.warp_corr_fwd_plain,
-            owner=warp_corr_train, per_step=nstages * n_micro, cost=k7_cost,
-            compare=rel_compare(K7_RTOL_OF_SCALE, ("corr",)),
-            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
-            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:694"),
-        "warp_corr_bwd": dict(
-            kernel=warp_corr_train.warp_corr_bwd, plain=warp_corr_train.warp_corr_bwd_plain,
-            owner=warp_corr_train, per_step=nstages * n_micro, cost=k8_cost,
-            compare=rel_compare(K8_RTOL_OF_SCALE, ("dref", "dsrc"), floor=0.0),
-            route="cuda", source="mvsformer_torch/csrc/warp_corr_bwd.cu",
-            replaces="mvsformer_tpu/ops/pallas/warp_corr_bwd.py:197"),
-    }
+    specs = train_kernel_specs(per_step=nstages * n_micro)
 
     # 8a. The model, the optimizer and the batch.
     t0 = time.perf_counter()
@@ -870,23 +952,7 @@ def training_phase(torch, card, eval_kernels):
 
     # 8e. One more step, recording the tensors it feeds K7 and K8 at every
     # launch (the Function calls them through warp_corr_train's globals).
-    recorded = {name: [] for name in specs}
-    originals = {name: getattr(warp_corr_train, name) for name in specs}
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            recorded[name].append((args, kwargs))
-            return originals[name](*args, **kwargs)
-        return wrapped
-
-    for name in specs:
-        setattr(warp_corr_train, name, recorder(name))
-    try:
-        step(batch)
-        torch.cuda.synchronize()
-    finally:
-        for name in specs:
-            setattr(warp_corr_train, name, originals[name])
+    recorded, _ = record_calls(torch, specs, step, batch)
 
     for name, spec in specs.items():
         if len(recorded[name]) != spec["per_step"]:
@@ -1052,26 +1118,42 @@ def write_dtu_scan(root, views=PIPE_VIEWS, img_hw=None, seed=0):
             fp.write(f"{ref}\n{len(srcs)} " + " ".join(f"{s} {100 - abs(s - ref)}" for s in srcs)
                      + "\n")
     rng = np.random.default_rng(seed)
-    v_, u_ = np.mgrid[0:h, 0:w] + 0.5
-    border = max(1, int(0.04 * min(h, w)))
-    mask = np.zeros((h, w), np.uint8)
-    mask[border:-border, border:-border] = 255
+    mask = plane_mask(h, w)
     for v in range(views):
         tx = v * PIPE_BASELINE
-        z = plane_depth(K, tx, h, w).astype(np.float64)
-        xw, yw = (u_ - K[0, 2]) / K[0, 0] * z - tx, (v_ - K[1, 2]) / K[1, 1] * z
-        tex = np.stack([np.sin(xw / 6.0) + np.cos(yw / 9.0), np.sin((xw + yw) / 11.0),
-                        np.cos(xw / 17.0) * np.sin(yw / 5.0)], -1)
-        img = 128 + 50 * tex + rng.normal(0, 6, tex.shape)
-        write_png(os.path.join(scan, "images", f"{v:0>8}.jpg"),
-                  np.clip(img, 0, 255).astype(np.uint8))
+        img, z = plane_view(K, tx, h, w, rng)
+        write_png(os.path.join(scan, "images", f"{v:0>8}.jpg"), img)
         ext = np.eye(4, dtype=np.float32)
         ext[0, 3] = tx
         write_cam_file(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"),
                        CameraParams(ext, K.astype(np.float32), 425.0, 2.5, 192.0))
-        save_pfm(os.path.join(gt, f"depth_map_{v:0>4}.pfm"), z.astype(np.float32))
+        save_pfm(os.path.join(gt, f"depth_map_{v:0>4}.pfm"), z)
         write_png(os.path.join(gt, f"depth_visual_{v:0>4}.png"), mask)
     return data
+
+
+def plane_view(K, tx, h, w, rng, gain=1.0):
+    """The plane seen by the camera at x = tx: (RGB uint8 [h, w, 3], its
+    texture times `gain` with noise; depth float32 [h, w])."""
+    import numpy as np
+
+    v_, u_ = np.mgrid[0:h, 0:w] + 0.5
+    z = plane_depth(K, tx, h, w).astype(np.float64)
+    xw, yw = (u_ - K[0, 2]) / K[0, 0] * z - tx, (v_ - K[1, 2]) / K[1, 1] * z
+    tex = np.stack([np.sin(xw / 6.0) + np.cos(yw / 9.0), np.sin((xw + yw) / 11.0),
+                    np.cos(xw / 17.0) * np.sin(yw / 5.0)], -1)
+    img = gain * (128 + 50 * tex) + rng.normal(0, 6, tex.shape)
+    return np.clip(img, 0, 255).astype(np.uint8), z.astype(np.float32)
+
+
+def plane_mask(h, w):
+    """The ground-truth mask: 255 but for a 4% border."""
+    import numpy as np
+
+    border = max(1, int(0.04 * min(h, w)))
+    mask = np.zeros((h, w), np.uint8)
+    mask[border:-border, border:-border] = 255
+    return mask
 
 
 def write_png_filtered(path, img, row_filter=None):
@@ -1486,6 +1568,398 @@ def pipeline_phase(torch, card, specs, device="cuda"):
             "save_depth_peak_memory_gb": path_peak_gb}
 
 
+# The training run (phase 12): `python -m mvsformer_torch.train` with
+# configs/config_mvsformer.json as it ships, on a synthetic DTU training
+# tree of one scan (6 views x 7 lights of the tilted plane at 1600x1200,
+# PNG rows with libpng's adaptive filters), then `--resume` for a second
+# epoch, then `python -m mvsformer_torch.test --which_ckpt model_best`.
+RUN_CONFIG = "configs/config_mvsformer.json"
+# What the config must still give: batch, views, depths, crop sizes, loader
+# threads, augmentation.
+RUN_SHAPE = (8, 5, 192, 25, 4, True)
+RUN_VIEWS = 6                  # x 7 lights: 42 samples, 5 steps of 8 (2 dropped), 6 val batches
+DTU_LIGHTS = 7                 # the lights `data/dtu.py` reads for every view
+RUN_PROFILE = (1, 2)           # --profile_start, --profile_steps
+RUN_TIMEOUT_S = 900
+# Launches per validation batch (K1-K6) and per training micro-batch (K7, K8).
+EVAL_PER_BATCH = {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
+                  "encoder_head": 1, "fpn_level": 3, "gsa_attention": 9}
+TRAIN_PER_MICRO = {"warp_corr_fwd": 4, "warp_corr_bwd": 4}
+
+
+def write_dtu_train_tree(root, views, lights=DTU_LIGHTS, img_hw=None, seed=0):
+    """A DTU training tree under `root` in the layout `data/dtu.py` reads:
+    Cameras/pair.txt (every other view a source) and <vid>_cam.txt
+    (intrinsics at the image's size; depth_min 425, interval 2.5),
+    DTU_origin/Rectified/scan1/rect_<vid + 1>_<light>_r5000.png (the plane's
+    texture, brighter by light, with noise; rows with libpng's adaptive
+    filters; made and written on 8 threads), Depths_raw/scan1/
+    depth_map_<vid>.pfm (the plane's depth) and depth_visual_<vid>.png (a
+    mask without a 4% border). Returns the rectified images' rows by
+    filter."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from mvsformer_torch.utils.cams import CameraParams, write_cam_file
+    from mvsformer_torch.utils.image import write_png
+    from mvsformer_torch.utils.pfm import save_pfm
+
+    h, w = img_hw or PIPE_IMG_HW
+    f = PIPE_FOCAL * w / 1600
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]])
+    cams = os.path.join(root, "Cameras")
+    rect = os.path.join(root, "DTU_origin", "Rectified", "scan1")
+    raw = os.path.join(root, "Depths_raw", "scan1")
+    for d in (cams, rect, raw):
+        os.makedirs(d, exist_ok=True)
+    with open(os.path.join(cams, "pair.txt"), "w") as fp:
+        fp.write(f"{views}\n")
+        for ref in range(views):
+            srcs = sorted((v for v in range(views) if v != ref), key=lambda v: abs(v - ref))
+            fp.write(f"{ref}\n{len(srcs)} " + " ".join(f"{s} {100 - abs(s - ref)}" for s in srcs)
+                     + "\n")
+    def rectified(v, light):
+        img, _ = plane_view(K, v * PIPE_BASELINE, h, w, np.random.default_rng((seed, v, light)),
+                            gain=0.7 + 0.1 * light)
+        return write_png_filtered(os.path.join(rect, f"rect_{v + 1:0>3}_{light}_r5000.png"), img)
+
+    mask = plane_mask(h, w)
+    with ThreadPoolExecutor(8) as pool:
+        jobs = [pool.submit(rectified, v, light) for v in range(views) for light in range(lights)]
+        for v in range(views):
+            ext = np.eye(4, dtype=np.float32)
+            ext[0, 3] = v * PIPE_BASELINE
+            write_cam_file(os.path.join(cams, f"{v:0>8}_cam.txt"),
+                           CameraParams(ext, K.astype(np.float32), 425.0, 2.5, 192.0))
+            save_pfm(os.path.join(raw, f"depth_map_{v:0>4}.pfm"),
+                     plane_depth(K, v * PIPE_BASELINE, h, w))
+            write_png(os.path.join(raw, f"depth_visual_{v:0>4}.png"), mask)
+        counts = [job.result() for job in jobs]
+    return [sum(c[i] for c in counts) for i in range(5)]
+
+
+def run_cli(module, args, log_name, timeout=RUN_TIMEOUT_S):
+    """`python -m <module> <args>` from the repo's root; its output goes to
+    chiprun_out/<log_name>.log. Raises if it fails. Returns its seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module] + args, cwd=here, capture_output=True,
+                         text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(here, "chiprun_out", f"{log_name}.log"), "w") as f:
+        f.write(res.stdout + "\n--- stderr ---\n" + res.stderr)
+    if res.returncode != 0:
+        print(res.stdout[-3000:] + res.stderr[-6000:], file=sys.stderr)
+        raise RuntimeError(f"python -m {module} {' '.join(args)} exited {res.returncode}")
+    return seconds
+
+
+def read_records(run_dir):
+    with open(os.path.join(run_dir, "train_log.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def record_calls(torch, specs, fn, *args):
+    """Run fn(*args) with each kernel of `specs` wrapped where its owner
+    module calls it; returns ({name: [(args, kwargs)]}, fn's result)."""
+    recorded = {name: [] for name in specs}
+    originals = {name: getattr(spec["owner"], name) for name, spec in specs.items()}
+
+    def recorder(name):
+        def wrapped(*a, **k):
+            recorded[name].append((a, k))
+            return originals[name](*a, **k)
+        return wrapped
+
+    for name, spec in specs.items():
+        setattr(spec["owner"], name, recorder(name))
+    try:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        for name, spec in specs.items():
+            setattr(spec["owner"], name, originals[name])
+    return recorded, out
+
+
+def check_epoch_records(recs, epoch, crops, steps, card):
+    """The records of one epoch of the CLI: its steps (finite losses, the
+    barrels' crop sizes, K7/K8 4 times a micro-batch and K1-K6 never), its
+    validation (K1-K6 at their per-batch counts) and its checkpoints. Prints
+    the per-step, validation and checkpoint lines; returns the epoch's
+    records by kind."""
+    import math
+
+    mine = {kind: [r for r in recs if r.get("epoch") == epoch and r["kind"] == kind]
+            for kind in ("step", "train_epoch", "val")}
+    mine["checkpoint"] = [r for r in recs if r["kind"] == "checkpoint"
+                          and steps[0] <= r["global_step"] <= steps[-1]]
+    got = [r["global_step"] for r in mine["step"]]
+    if got != list(steps):
+        raise RuntimeError(f"epoch {epoch}: steps {got}, want {list(steps)}")
+    for i, r in enumerate(mine["step"]):
+        if not all(math.isfinite(r[k]) for k in r if k.startswith("loss")):
+            raise RuntimeError(f"epoch {epoch} step {r['global_step']}: non-finite loss {r}")
+        if r["crop"] != list(crops[i]):
+            raise RuntimeError(f"step {r['global_step']}: crop {r['crop']}, want {crops[i]}")
+        want = {name: n * r["micro_batches"] for name, n in TRAIN_PER_MICRO.items() if n}
+        if r["launches"] != want:
+            raise RuntimeError(f"step {r['global_step']}: launches {r['launches']}, want {want}")
+        print(f"training run epoch {epoch} step {r['global_step']}: {r['ms']:.1f} ms, crop "
+              f"{r['crop'][0]}x{r['crop'][1]}, {r['micro_batches']} micro-batches, waited "
+              f"{r['wait_ms']:.1f} ms on the loader, loss {r['loss']:.5f}, lr {r['lr']:.4e} "
+              f"[{card}]")
+    ep, val = mine["train_epoch"][0], mine["val"]
+    if len(val) != 1:
+        raise RuntimeError(f"epoch {epoch}: {len(val)} validations")
+    val = val[0]
+    n_val = len(val["batch_ms"])
+    want = {name: n * n_val for name, n in EVAL_PER_BATCH.items() if n}
+    if val["launches"] != want:
+        raise RuntimeError(f"epoch {epoch} validation: launches {val['launches']}, want {want}")
+    def gb(x):
+        return "not measured" if x is None else f"{x:.2f} GB"
+
+    print(f"training run epoch {epoch}: load {ep['load_ms_per_sample']:.1f} ms per training "
+          f"sample ({ep['samples_loaded']} read), peak memory {gb(ep['peak_memory_gb'])}; "
+          f"validation {n_val} batches at " + ", ".join(f"{t:.1f}" for t in val["batch_ms"])
+          + f" ms, load {val['load_ms_per_sample']:.1f} ms per sample, peak memory "
+          f"{gb(val['peak_memory_gb'])}, mean_error {val['mean_error']:.5f} [{card}]")
+    for c in mine["checkpoint"]:
+        print(f"training run checkpoint {c['name']} at step {c['global_step']}: "
+              f"{c['ms']:.1f} ms, {c['bytes'] / 1e6:.1f} MB [{card}]")
+    return mine
+
+
+def training_run_phase(torch, card, eval_specs, device="cuda"):
+    """Phase 12 on the card (`device`). Returns its details, with each
+    kernel's checked launches under "rows" and its launches in the CLI runs
+    under "launches"."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from mvsformer_torch.config import load_config, save_config
+    from mvsformer_torch.data.dtu import DTUMVSDataset
+    from mvsformer_torch.data.eval_dataset import MVSEvalDataset
+    from mvsformer_torch.data.loader import MVSLoader, collate
+    from mvsformer_torch.infer import STAGES, make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.optim import warmup_cosine_factor
+    from mvsformer_torch.train.trainer import Trainer
+    from mvsformer_torch.utils.convert_weights import load_reference_checkpoint
+    from mvsformer_torch.utils.pfm import read_pfm
+
+    train_specs = train_kernel_specs(per_step=None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "training_run")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        # 12a. The tree and the config as it ships, but for the paths and the run's length.
+        t0 = time.perf_counter()
+        data = os.path.join(root, "dtu")
+        filters = write_dtu_train_tree(data, RUN_VIEWS)
+        listfile = os.path.join(root, "scans.txt")
+        with open(listfile, "w") as f:
+            f.write("scan1\n")
+        cfg = load_config(os.path.join(here, RUN_CONFIG))
+        msa = cfg.data.multi_scale_args
+        if (cfg.data.batch_size, cfg.data.nviews, cfg.data.num_depths, len(msa.scales),
+                cfg.data.num_workers, cfg.data.augment) != RUN_SHAPE:
+            raise RuntimeError(f"{RUN_CONFIG} no longer gives the training run this phase holds")
+        steps = RUN_VIEWS * DTU_LIGHTS // cfg.data.batch_size
+        cli_device = [] if device == "cuda" else ["--device", device]
+        cfg.data.datapath = data
+        cfg.data.train_data_list = cfg.data.val_data_list = listfile
+        cfg.trainer.epochs, cfg.trainer.save_every_steps, cfg.trainer.logging_every = 1, 2, 1
+        cfg.trainer.save_dir = os.path.join(root, "saved")
+        run_dir = os.path.join(cfg.trainer.save_dir, "models", cfg.name)
+        config1, config2 = os.path.join(root, "run1.json"), os.path.join(root, "run2.json")
+        save_config(cfg, config1)
+        cfg.trainer.epochs = 2
+        save_config(cfg, config2)
+        print(f"training run tree: {RUN_VIEWS} views x {DTU_LIGHTS} lights of "
+              f"{PIPE_IMG_HW[1]}x{PIPE_IMG_HW[0]} PNG, written in {time.perf_counter() - t0:.1f} s; "
+              f"rows by filter (None, Sub, Up, Average, Paeth): {filters}", flush=True)
+
+        # 12b. Epoch 1 through the CLI, its profile window, then epoch 2 by --resume.
+        pdir = os.path.join(root, "profile")
+        run1_s = run_cli("mvsformer_torch.train", [
+            "--config", config1, "--profile_dir", pdir, "--profile_start", str(RUN_PROFILE[0]),
+            "--profile_steps", str(RUN_PROFILE[1])] + cli_device, "training_run_1")
+        run2_s = run_cli("mvsformer_torch.train", ["--config", config2, "--resume"] + cli_device,
+                         "training_run_2")
+        recs = read_records(run_dir)
+        crops = [tuple(msa.scales[::-1][i % len(msa.scales)]) for i in range(steps)]
+        epochs = {e: check_epoch_records(recs, e, crops,
+                                         range(1 + (e - 1) * steps, 1 + e * steps), card)
+                  for e in (1, 2)}
+        names = {c["name"] for c in epochs[1]["checkpoint"]}
+        if names != {"model_step", "model_best", "model_last"}:
+            raise RuntimeError(f"epoch 1 saved {sorted(names)}")
+        for name in names:
+            for ext in (".pth", ".meta.json"):
+                if not os.path.isfile(os.path.join(run_dir, name + ext)):
+                    raise RuntimeError(f"no {name}{ext} in the run dir")
+        resume = [r for r in recs if r["kind"] == "resume"]
+        want = {"kind": "resume", "name": "model_last", "global_step": steps,
+                "start_epoch": 2, "skip_batches": 0}
+        if resume != [want]:
+            raise RuntimeError(f"resume records {resume}, want [{want}]")
+        first_lr = epochs[2]["step"][0]["lr"]
+        want_lr = cfg.optimizer.lr * warmup_cosine_factor(
+            steps, cfg.optimizer.warmup_steps, 2 * steps, cfg.optimizer.min_lr)
+        if not math.isclose(first_lr, want_lr, rel_tol=1e-9):
+            raise RuntimeError(f"the resumed run's first LR {first_lr}, want schedule({steps}) "
+                               f"{want_lr}")
+        profile = [r for r in recs if r["kind"] == "profile"]
+        if len(profile) != 1 or profile[0]["steps"] != RUN_PROFILE[1]:
+            raise RuntimeError(f"profile records {profile}")
+        profile = profile[0]
+        idle = ("not measured (the profiler saw no device events)"
+                if profile["idle_share"] is None else f"{profile['idle_share']:.3f}")
+        print(f"training run: epoch 1 in {run1_s:.1f} s, --resume (epoch 2) in {run2_s:.1f} s; "
+              f"resumed at epoch 2, global step {steps}, first LR {first_lr:.4e} = "
+              f"schedule({steps}); profile window of steps {profile['first_step'] + 1}-"
+              f"{profile['first_step'] + profile['steps']}: {profile['wall_ms']:.1f} ms wall, "
+              f"{profile['kernel_ms'] or 0:.1f} ms of kernels, device idle share {idle} [{card}]",
+              flush=True)
+
+        # 12c. model_last restored in this process equals the file bit for bit.
+        class Epoch:
+            def __len__(self):
+                return steps
+
+        trainer = Trainer(cfg, Epoch(), device=device,
+                          logger=type("Quiet", (), {"info": lambda s, m: None})())
+        trainer.init_state()
+        trainer.restore("model_last")
+        saved = torch.load(os.path.join(run_dir, "model_last.pth"), map_location="cpu",
+                           weights_only=False)
+        def same(a, b):
+            return bit_equal(torch, a.cpu().reshape(-1), b.reshape(-1))
+
+        unequal = [k for k, v in trainer.model.state_dict().items()
+                   if not same(v, saved["state_dict"][k])]
+        opt = trainer.optimizer.state_dict()["state"]
+        for i, st in saved["optimizer"]["state"].items():
+            unequal += [f"optimizer {i} {k}" for k in ("exp_avg", "exp_avg_sq", "step")
+                        if not same(opt[i][k], st[k])]
+        if unequal or len(opt) != len(saved["optimizer"]["state"]):
+            raise RuntimeError(f"restored state differs from model_last: {unequal[:8]}")
+        print(f"model_last restored: {len(saved['state_dict'])} tensors (parameters and BN "
+              f"buffers) and the AdamW moments of {len(opt)} tensors bit-equal to the file")
+
+        # 12d. The test CLI on phase 11's eval scan, against make_infer_fn.
+        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        out = os.path.join(root, "test_out")
+        test_s = run_cli("mvsformer_torch.test", [
+            "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", run_dir,
+            "--which_ckpt", "model_best", "--outdir", out, "--skip_fusion", "--max_h", str(H),
+            "--max_w", str(W), "--ndepths", str(NDEPTH_FULL), "--num_view", str(PIPE_NUM_VIEW)]
+            + cli_device, "training_run_test")
+        best = build_model(cfg.arch, device=device)
+        load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), best)
+        ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
+                            interval_scale=1.06, max_h=H, max_w=W)
+        sample = collate([ds[0]])
+        depth, conf, _ = make_infer_fn(best)(
+            sample["imgs"], {k: sample["proj_matrices"][k] for k in STAGES},
+            sample["depth_values"])
+        gap_d = float(np.abs(read_pfm(os.path.join(out, "scan1", "depth_est", "00000000.pfm"))[0]
+                             - depth[0].cpu().numpy()).max())
+        gap_c = float(np.abs(np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
+                             - conf[0].cpu().numpy()).max())
+        print(f"test CLI on model_best ({test_s:.1f} s): view 0 against make_infer_fn of the "
+              f"restored model: depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance "
+              f"{E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})", flush=True)
+        if gap_d > E2E_DEPTH_ATOL or gap_c > E2E_CONF_ATOL:
+            raise RuntimeError("the test CLI's view 0 disagrees with make_infer_fn")
+        del best, depth, conf
+        torch.cuda.empty_cache()
+
+        # 12e. The kernels at the run's new shapes: one validation batch (B=8,
+        # 512x640) and one training micro-batch at 1024x1280.
+        dkw = dict(nviews=cfg.data.nviews, ndepths=cfg.data.num_depths,
+                   interval_scale=cfg.data.interval_scale, crop=cfg.data.crop,
+                   augment=cfg.data.augment, aug_args=vars(cfg.data.aug_args),
+                   height=cfg.data.height, width=cfg.data.width, multi_scale=True,
+                   multi_scale_args={"scales": msa.scales, "resize_range": msa.resize_range},
+                   resize_scale=cfg.data.resize_scale, batch_size=cfg.data.batch_size)
+        val_batch = next(iter(MVSLoader(DTUMVSDataset(data, listfile, "val", **dkw),
+                                        cfg.data.batch_size, shuffle=False, drop_last=False)))
+        train_ds = DTUMVSDataset(data, listfile, "train", **dkw)
+        train_ds.reset_dataset(np.arange(len(train_ds)))  # barrel 0: the largest crop
+        micro = collate([train_ds[0]])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        trainer.model.eval()
+        val_calls, _ = record_calls(torch, eval_specs, trainer._eval_forward, val_batch)
+        train_calls, _ = record_calls(torch, train_specs, trainer.step,
+                                      trainer._train_batch(micro))
+        rows = {}
+        vb, _, vh, vw, _ = val_batch["imgs"].shape
+        for name, calls in list(val_calls.items()) + list(train_calls.items()):
+            spec = eval_specs.get(name) or train_specs[name]
+            want = spec["per_request"] if name in eval_specs else len(cfg.arch.ndepths)
+            if len(calls) != want:
+                raise RuntimeError(f"{name}: recorded {len(calls)} calls, want {want}")
+            shape = (f"val B={vb} {vh}x{vw}" if name in eval_specs
+                     else f"micro-batch {micro['imgs'].shape[2]}x{micro['imgs'].shape[3]}")
+            rows[name] = [check_kernel(torch, card, name, spec,
+                                       f"{shape} {call_label(name, i, args)}", args, kwargs)
+                          for i, (args, kwargs) in enumerate(calls)]
+        del val_calls, train_calls
+
+        # 12f. The crop sweep: at each crop size one training micro-batch of 1
+        # sample and one eval forward of 1 sample, all outputs finite.
+        sweep = []
+        infer = make_infer_fn(trainer.model)
+        for h, w in msa.scales:
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            metrics = trainer.step(synthetic_batch(torch, 1, cfg.data.nviews, h, w, device=device,
+                                                   with_gt=True))
+            torch.cuda.synchronize()
+            train_ms = (time.perf_counter() - t0) * 1e3
+            bad = [n for n, p in trainer.model.named_parameters()
+                   if p.grad is not None and not bool(torch.isfinite(p.grad).all())]
+            trainer.model.eval()
+            t0 = time.perf_counter()
+            d, c, _ = infer(*synthetic_request(torch, 1, cfg.data.nviews, h, w, device=device))
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - t0) * 1e3
+            counts = dict(cuda_build.LAUNCHES)
+            want = {n: c for n, c in dict(TRAIN_PER_MICRO, **EVAL_PER_BATCH).items() if c}
+            if not math.isfinite(metrics["loss"]) or bad or not (
+                    bool(torch.isfinite(d).all()) and bool(torch.isfinite(c).all())):
+                raise RuntimeError(f"crop {h}x{w}: non-finite loss, gradients {bad[:4]} or outputs")
+            if counts != want:
+                raise RuntimeError(f"crop {h}x{w}: launches {counts}, want {want}")
+            sweep.append({"crop": [h, w], "train_ms": train_ms, "eval_ms": eval_ms,
+                          "loss": metrics["loss"]})
+        print(f"crop sweep, 1 sample, {cfg.data.nviews} views (training micro-batch ms / eval "
+              "forward ms): "
+              + ", ".join(f"{r['crop'][0]}x{r['crop'][1]} {r['train_ms']:.0f}/{r['eval_ms']:.0f}"
+                          for r in sweep) + f"; all finite [{card}]", flush=True)
+        launches = {}
+        for r in recs:
+            for name, n in r.get("launches", {}).items():
+                launches[name] = launches.get(name, 0) + n
+        details = {"records": recs, "run_s": [run1_s, run2_s], "test_cli_s": test_s,
+                   "view0_gap": [gap_d, gap_c], "profile": profile, "sweep": sweep,
+                   "rows_by_filter": filters, "first_lr": first_lr}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rows": rows, "launches": launches, "details": details}
+
+
+
 def main() -> int:
     import torch
 
@@ -1495,10 +1969,8 @@ def main() -> int:
         return 2
     from mvsformer_torch.config import ModelConfig
     from mvsformer_torch.infer import make_infer_fn
-    from mvsformer_torch.models import fpn, stagenet, twins
     from mvsformer_torch.models.mvsformer import build_model, random_init_
-    from mvsformer_torch.ops import (cuda_build, encoder_head, fpn_level, gsa_attention,
-                                     stage_tail, vis_net, warp_corr)
+    from mvsformer_torch.ops import cuda_build, fpn_level
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1556,43 +2028,7 @@ def main() -> int:
     fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
     nstages = len(cfg.ndepths)
 
-    # Every kernel of the path: its wrapper and plain version, the module
-    # whose global the model calls it through, and its launches per request.
-    specs = {
-        "warp_group_corr": dict(
-            kernel=warp_corr.warp_group_corr, plain=warp_corr.warp_group_corr_plain,
-            owner=stagenet, per_request=nstages, cost=k1_cost, compare=compare_k1,
-            route="cuda", source="mvsformer_torch/csrc/warp_corr.cu",
-            replaces="mvsformer_tpu/ops/pallas/warp_corr.py:1325", bitwise=True),
-        "visibility_net": dict(
-            kernel=vis_net.visibility_net, plain=vis_net.visibility_net_plain,
-            owner=stagenet, per_request=nstages, cost=k2_cost, compare=compare_k2,
-            route="cuda", source="mvsformer_torch/csrc/vis_net.cu",
-            replaces="mvsformer_tpu/ops/pallas/vis_net.py:192", bitwise=True),
-        "depth_decode": dict(
-            kernel=stage_tail.depth_decode, plain=stage_tail.depth_decode_plain,
-            owner=stagenet, per_request=nstages, cost=k3_cost, compare=compare_k3,
-            route="cuda", source="mvsformer_torch/csrc/depth_decode.cu",
-            replaces="mvsformer_tpu/ops/pallas/stage_tail.py:57", bitwise=True),
-        "encoder_head": dict(
-            kernel=encoder_head.encoder_head, plain=encoder_head.encoder_head_plain,
-            owner=fpn, per_request=1, cost=k4_cost,
-            compare=rel_compare(K4_RTOL_OF_SCALE, ("conv01", "down0")),
-            route="cuda", source="mvsformer_torch/csrc/encoder_head.cu",
-            replaces="mvsformer_tpu/ops/pallas/encoder_head.py:213", bitwise=True),
-        "fpn_level": dict(
-            kernel=fpn_level.fpn_level, plain=fpn_level.fpn_level_plain,
-            owner=fpn, per_request=3, cost=k5_cost,
-            compare=rel_compare(K5_RTOL_OF_SCALE, ("out", "intra'")),
-            route="cuda", source="mvsformer_torch/csrc/fpn_level.cu",
-            replaces="mvsformer_tpu/ops/pallas/fpn_final.py:212", bitwise=True),
-        "gsa_attention": dict(
-            kernel=gsa_attention.gsa_attention, plain=gsa_attention.gsa_attention_plain,
-            owner=twins, per_request=sum(d // 2 for d in model.vit.depths), cost=k6_cost,
-            compare=rel_compare(K6_RTOL_OF_SCALE, ("out",)), library=sdpa,
-            route="cuda", source="mvsformer_torch/csrc/gsa_attention.cu",
-            replaces="mvsformer_tpu/ops/pallas/gsa_attention.py:68", bitwise=True),
-    }
+    specs = eval_kernel_specs(model)
 
     # 4a. Warm-up request.
     t0 = time.perf_counter()
@@ -1744,6 +2180,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipeline = pipeline_phase(torch, card, specs)
 
+    # 12. The training run through the CLI, its kernels at the run's shapes,
+    # the crop sweep. Each kernel's entry adds these launches and checks.
+    torch.cuda.empty_cache()
+    run = training_run_phase(torch, card, specs)
+    for row in kernels:
+        name = row["name"]
+        if name in run["rows"]:
+            checked = (per_call[name] if name in per_call else train["per_call"][name])
+            row.update(kernel_row(name, dict(specs, **train_kernel_specs(None))[name],
+                                  checked + run["rows"][name],
+                                  row["launches"] + run["launches"].get(name, 0)))
+
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
@@ -1758,6 +2206,7 @@ def main() -> int:
         "shape": {"B": B, "V": V, "H": H, "W": W, "depths": NDEPTH_FULL},
         "training": train,
         "pipeline": pipeline,
+        "training_run": dict(run["details"], rows=run["rows"], launches=run["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

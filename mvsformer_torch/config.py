@@ -1,14 +1,16 @@
-"""Typed model configuration for the PyTorch port.
+"""Typed experiment configuration for the PyTorch port.
 
-A copy of the part of the JAX package's configuration that the ported eval
-forward and training step read: the fields that change what the network
-computes, those that `build_model` rejects until a later slice ports them,
-and the optimizer, batch and schedule fields of one training step. Routing
-knobs that only pick between exact rewrites of the same maths on a TPU have
-no counterpart here, and the data-loader, checkpoint and other-model fields
-come with the slices that read them. `load_config` reads the same JSON
-layouts (this package's and the reference `arch.args` layout) and ignores
-keys it does not know.
+A copy of the part of the JAX package's configuration that the port reads:
+the model fields that change what the network computes (and those that
+`build_model` rejects until a later slice ports them), and the whole data,
+optimizer and trainer sections that the training run reads. Routing knobs
+that only pick between exact rewrites of the same maths on a TPU have no
+counterpart here, nor have the DINO model's fields (ROADMAP A6). Every field
+that both packages have keeps the JAX default. `load_config` reads the same
+JSON layouts (this package's, the JAX package's and the reference
+`arch.args` / `data_loader` / `optimizer.args` layout) and ignores keys it
+does not know; `save_config` writes this package's layout, which the JAX
+`load_config` reads back.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any
 class ViTConfig:
     rescale: float = 0.5  # backbone input size over the image size
     vit_arch: str = "alt_gvt_small"
+    vit_path: str = ""  # pretrained Twins .pth merged at init (train CLI --vit_path)
     out_ch: int = 64
     drop_path_rate: float | None = None  # stochastic depth; None = the preset's
 
@@ -50,6 +53,21 @@ class ModelConfig:
 
 @dataclass
 class MultiScaleConfig:
+    # The training crop sizes (H, W); consecutive batches cycle through them
+    # in reverse order, one size a batch.
+    scales: Any = field(default_factory=lambda: [
+        [512, 640], [512, 704], [512, 768],
+        [576, 704], [576, 768], [576, 832],
+        [640, 832], [640, 896], [640, 960],
+        [704, 896], [704, 960], [704, 1024],
+        [768, 960], [768, 1024], [768, 1088],
+        [832, 1024], [832, 1088], [832, 1152],
+        [896, 1152], [896, 1216], [896, 1280],
+        [960, 1216], [960, 1280], [960, 1344],
+        [1024, 1280],
+    ])
+    # The crop's enlargement range before the resize (a random factor a sample).
+    resize_range: Any = field(default_factory=lambda: [1.0, 1.2])
     # Micro-batch size by image height: a batch of taller images is split
     # into micro-batches of this many samples, whose gradients are averaged.
     scale_batch_map: Any = field(default_factory=lambda: {
@@ -59,9 +77,40 @@ class MultiScaleConfig:
 
 
 @dataclass
+class AugConfig:
+    """The colour jitter and gamma ranges, one draw shared by a sample's views."""
+    brightness: float = 0.2
+    contrast: float = 0.1
+    saturation: float = 0.1
+    hue: float = 0.05
+    min_gamma: float = 0.9
+    max_gamma: float = 1.1
+
+
+@dataclass
 class DataConfig:
-    batch_size: int = 8
+    type: str = "DTULoader"  # DTULoader | BlendedLoader
+    data_set_type: str = "multi_scale"
+    datapath: str = ""
+    train_data_list: str = ""
+    val_data_list: str = ""
+    mode: str = "train"
+    nviews: int = 5
+    num_depths: int = 192
+    multi_scale: bool = True
     multi_scale_args: MultiScaleConfig = field(default_factory=MultiScaleConfig)
+    interval_scale: float = 1.06
+    resize_scale: float = 0.5  # validation's resize of the original images
+    height: int = 512  # validation's centre crop (training's without multi_scale)
+    width: int = 640
+    shuffle: bool = True
+    seq_size: int = 7
+    batch_size: int = 8
+    crop: bool = True  # random crops in training (centre crops otherwise)
+    consist_crop: bool = False  # one crop offset for all views of a sample
+    num_workers: int = 4  # loader threads
+    augment: bool = True
+    aug_args: AugConfig = field(default_factory=AugConfig)
 
 
 @dataclass
@@ -77,12 +126,21 @@ class OptimizerConfig:
 @dataclass
 class TrainerConfig:
     epochs: int = 15
+    save_dir: str = "saved/"  # the run dir is save_dir/models/<name>
+    save_period: int = 1  # model_last every this many epochs
+    save_every_steps: int = 0  # >0: a mid-epoch model_step checkpoint every N steps
+    logging_every: int = 100
+    early_stop: int = 10  # stop after this many validations without improvement
+    depth_scale: float = 1.0
+    eval_freq: int = 1  # validate every this many epochs
+    monitor: str = "min mean_error"
 
 
 @dataclass
 class Config:
     """The model, data, optimizer and trainer sections of an experiment
     config, as far as the ported code reads them."""
+    name: str = "MVSFormer-TPU"
     arch: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
@@ -111,7 +169,8 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Confi
     """Load a JSON config and apply dotted-path overrides.
 
     Accepts this package's layout, the JAX package's layout and the
-    reference layout (`arch.args`); unknown sections and keys are ignored.
+    reference layout (`arch.args`, `data_loader[0].args`,
+    `optimizer.args`); unknown sections and keys are ignored.
     """
     raw: dict = {}
     if path:
@@ -119,6 +178,12 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Confi
             raw = json.load(f)
     if "arch" in raw and isinstance(raw["arch"], dict) and "args" in raw["arch"]:
         raw["arch"] = dict(raw["arch"]["args"])
+    if "data_loader" in raw:
+        dl = raw.pop("data_loader")
+        entry = dl[0] if isinstance(dl, list) else dl
+        raw["data"] = dict(entry.get("args", {}), type=entry.get("type", "DTULoader"))
+    if "optimizer" in raw and "args" in raw.get("optimizer", {}):
+        raw["optimizer"] = dict(raw["optimizer"]["args"])
     if "arch" in raw and isinstance(raw["arch"], dict):
         va = raw["arch"].get("vit_args")
         if va and va.get("twin") is False:
@@ -132,3 +197,8 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Confi
             obj = getattr(obj, p)
         setattr(obj, parts[-1], value)
     return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)

@@ -6,14 +6,16 @@ confidence, cameras and the reference image; phase 2 (`fuse.fuse_scan`)
 fuses them into one PLY per scan by `pcd`, `dpcd` or `gipuma` filtering.
 
     python -m mvsformer_torch.test --dataset dtu --testpath /path/dtu_test \\
-        --testlist lists/dtu/test.txt --ckpt_dir run --torch_ckpt run/model.pth \\
+        --testlist lists/dtu/test.txt --ckpt_dir saved/models/RUN --which_ckpt model_best \\
         --outdir outputs --max_h 1152 --max_w 1536 --ndepths 192 --filter_method pcd
 
 Departures from the JAX CLI:
 - `--device` (default `cuda`) replaces `--platform`.
 - `--dtype` takes fp32 only: the port has no bf16 mode yet (ROADMAP B).
-- Weights come from `--torch_ckpt` (a reference `.pth`); restoring the JAX
-  package's orbax checkpoints is not ported (ROADMAP A4).
+- Weights come from `<ckpt_dir>/<which_ckpt>.pth`, a checkpoint that
+  `python -m mvsformer_torch.train` wrote, or from `--torch_ckpt` (a
+  reference `.pth`); the JAX package's orbax checkpoint directories are not
+  read (ROADMAP A4).
 - `--data_parallel`, `--view_parallel` and `--depth_parallel` above 1 are
   not ported (ROADMAP A5), nor is `--eval_view_chunk` (ROADMAP A6).
 - The scans' images must be PNG, PPM or PGM (under their `.jpg` names is
@@ -32,7 +34,8 @@ def parse_args(argv=None):
         description="MVSFormer testing on PyTorch and CUDA",
         epilog="Departures from the JAX package's test.py: --device replaces --platform; "
                "--dtype takes fp32 only (no bf16 mode yet, ROADMAP B); weights come from "
-               "--torch_ckpt only (orbax restore: ROADMAP A4); --data_parallel, "
+               "<ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (orbax restore: ROADMAP A4); "
+               "--data_parallel, "
                "--view_parallel and --depth_parallel above 1 (ROADMAP A5) and "
                "--eval_view_chunk (ROADMAP A6) are not ported; input images must be PNG, "
                "PPM or PGM (no JPEG decoder: ROADMAP A3), and images/*.jpg is written as PNG.")
@@ -42,10 +45,11 @@ def parse_args(argv=None):
                         help="scan list file; default = builtin benchmark list")
     parser.add_argument("--ckpt_dir", required=True, help="run dir containing config.json")
     parser.add_argument("--which_ckpt", default="model_best",
-                        help="orbax checkpoint name: not ported (ROADMAP A4)")
+                        help="the checkpoint of the training run in ckpt_dir: "
+                             "<ckpt_dir>/<which_ckpt>.pth")
     parser.add_argument("--torch_ckpt", default=None,
-                        help="a reference MVSFormer checkpoint (.pth), loaded as it is: "
-                             "the port's only source of weights")
+                        help="a reference MVSFormer checkpoint (.pth), loaded as it is, "
+                             "instead of --which_ckpt")
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--num_view", type=int, default=5,
                         help="views per reference (T&T benchmarks use 10-20)")
@@ -125,12 +129,15 @@ def main(argv=None):
         cfg = load_config(os.path.join(args.ckpt_dir, "config.json"))
         if args.eval_view_chunk:
             cfg.arch.eval_view_chunk = args.eval_view_chunk
-        if not args.torch_ckpt:
-            raise NotImplementedError(
-                f"restoring the orbax checkpoint {args.which_ckpt!r} is not ported "
-                "(ROADMAP A4); pass --torch_ckpt with a reference .pth")
         model = build_model(cfg.arch, device=device)
-        load_reference_checkpoint(args.torch_ckpt, model)
+        ckpt = args.torch_ckpt or os.path.join(args.ckpt_dir, args.which_ckpt + ".pth")
+        if not os.path.isfile(ckpt):
+            if os.path.isdir(os.path.join(args.ckpt_dir, args.which_ckpt)):
+                raise NotImplementedError(
+                    f"{args.which_ckpt} in {args.ckpt_dir} is a JAX orbax checkpoint directory, "
+                    "which the port does not read (ROADMAP A4); pass a .pth")
+            raise FileNotFoundError(f"no checkpoint {ckpt}")
+        load_reference_checkpoint(ckpt, model)
         tmps = [float(t) for t in args.tmps.split(",")]
         if ":" in args.interval_scale:
             interval_scale = {k: float(v) for k, v in

@@ -16,6 +16,10 @@ schedule is a `LambdaLR` that multiplies every group's base LR by the same
 warmup-cosine factor; step k of the optimizer uses factor(k), as optax's
 count does. With `fix` the backbone's tensors are left out of the optimizer
 (and take no gradient). Layer decay for DINO comes with that model.
+
+`set_step` puts AdamW and its schedule at a step count together, as the JAX
+trainer sets every optax `count`; `warmup_multistep_schedule` is the JAX
+package's secondary schedule (linear or constant warmup, then step decay).
 """
 
 from __future__ import annotations
@@ -33,6 +37,48 @@ def warmup_cosine_factor(step: int, warmup_steps: int, total_steps: int,
         return step / max(1, warmup_steps)
     prog = (step - warmup_steps) / max(1, total_steps - warmup_steps)
     return min_lr_frac + (1.0 - min_lr_frac) * 0.5 * (1.0 + math.cos(math.pi * prog))
+
+
+def warmup_multistep_schedule(base_lr: float, milestones, gamma: float = 0.1,
+                              warmup_factor: float = 1.0 / 3, warmup_iters: int = 500,
+                              warmup_method: str = "linear"):
+    """lr(step): the warmup factor (constant, or linear from warmup_factor
+    to 1) before warmup_iters, times gamma for every milestone reached."""
+    milestones = tuple(sorted(milestones))
+
+    def fn(step):
+        if step < warmup_iters:
+            if warmup_method == "constant":
+                wf = warmup_factor
+            else:
+                alpha = step / max(1, warmup_iters)
+                wf = warmup_factor * (1 - alpha) + alpha
+        else:
+            wf = 1.0
+        return base_lr * wf * gamma ** sum(step >= m for m in milestones)
+
+    return fn
+
+
+def set_step(optimizer: torch.optim.Optimizer, scheduler, step: int) -> None:
+    """Put AdamW and its LambdaLR at step count `step`, so the next update
+    applies the schedule's factor at `step` and Adam's bias correction for
+    update `step + 1`: every parameter's `step` is set (a parameter with no
+    state yet gets zero moments), the scheduler's position too, and each
+    group's LR follows. Moments already there are kept."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = torch.tensor(0.0)
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["step"].fill_(float(step))
+    scheduler.last_epoch = step
+    for group, base, factor in zip(optimizer.param_groups, scheduler.base_lrs,
+                                   scheduler.lr_lambdas):
+        group["lr"] = base * factor(step)
+    scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]
 
 
 def decays(name: str, param: torch.Tensor) -> bool:

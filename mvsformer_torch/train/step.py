@@ -18,8 +18,8 @@ Forward and backward run with TF32 off (`fp32_math`): the model is fp32
 on the card. The batch takes the model's dtype, so a float64 model (the CPU
 parity test's) runs the step in float64 around the same fp32 parts as the
 JAX model: the warp and correlation, the softmaxes and the losses.
-The data loader, checkpoints, validation and the CLI come with a later
-slice; the batch is a dict of tensors or arrays in the JAX layout:
+`train/trainer.py` drives it over the data loader's batches; the batch is
+a dict of tensors or arrays in the JAX layout:
 imgs [B, V, H, W, 3], proj_matrices {stageK: [B, V, 2, 4, 4]},
 depth_values [B, Dfull], depth_gt and mask {stageK: [B, h, w]}.
 """

@@ -16,7 +16,8 @@ arrays and lays each tensor out for torch:
 
 Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
 the whole TwinMVSNet. `load_reference_checkpoint` loads a reference `.pth`
-as it is, since the names already agree.
+as it is, since the names already agree, and `merge_pretrained_backbone`
+merges a pretrained Twins `.pth` into the backbone.
 """
 
 from __future__ import annotations
@@ -207,3 +208,46 @@ def load_reference_checkpoint(path: str, model) -> None:
             "a DINOMVSNet (MVSFormer-P) checkpoint: the port has no DINOMVSNet yet "
             "(ROADMAP A6)")
     model.load_state_dict(sd, strict=True)
+
+
+def merge_pretrained_backbone(model, path: str, prefix: str = "vit.", log=print) -> dict:
+    """Merge a pretrained backbone checkpoint into the model's `prefix`
+    tensors, non-strictly, as the reference's `torch_init_model` does at
+    model construction: tensors present in both with the same shape are
+    copied; missing, unexpected and shape-mismatched names are reported
+    through `log` (the JAX package's report). The file may hold the state
+    dict itself, {'model': sd}, or {'state_dict': sd} whose `vit.` names
+    are the backbone's. Returns {loaded, missing, unexpected, mismatched}
+    (sorted names)."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        sd = obj["state_dict"]
+        if any(k.startswith("vit.") for k in sd):
+            sd = {k[len("vit."):]: v for k, v in sd.items() if k.startswith("vit.")}
+    elif isinstance(obj, dict) and isinstance(obj.get("model"), dict):
+        sd = obj["model"]
+    else:
+        sd = obj
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    want = {k[len(prefix):]: v for k, v in model.state_dict().items() if k.startswith(prefix)}
+    if not want:
+        raise KeyError(f"the model has no '{prefix}' tensors")
+    missing = sorted(set(want) - set(sd))
+    unexpected = sorted(set(sd) - set(want))
+    mismatched = sorted(k for k in set(want) & set(sd)
+                        if tuple(want[k].shape) != tuple(sd[k].shape))
+    loaded = sorted((set(want) & set(sd)) - set(mismatched))
+    log(f"[pretrained] {path} -> {prefix.rstrip('.')}: loaded {len(loaded)}/{len(want)} "
+        f"tensors; missing {len(missing)}, unexpected {len(unexpected)}, "
+        f"shape-mismatch {len(mismatched)}")
+    for name, keys in (("missing", missing), ("unexpected", unexpected),
+                       ("shape-mismatch", mismatched)):
+        for k in keys[:20]:
+            log(f"[pretrained]   {name}: {k}")
+        if len(keys) > 20:
+            log(f"[pretrained]   ... and {len(keys) - 20} more {name}")
+    with torch.no_grad():
+        for k in loaded:
+            want[k].copy_(sd[k])
+    return {"loaded": loaded, "missing": missing, "unexpected": unexpected,
+            "mismatched": mismatched}

@@ -28,10 +28,33 @@ The resizes follow OpenCV's sampling conventions:
   in))) in float64, as OpenCV computes it, clamped to in - 1. This is
   torch's `mode="nearest"`, whose float32 scale can flip an index where
   the product lands on an integer.
+- `resize_area_u8` (`INTER_AREA` on uint8 images, shrinking only; numpy
+  in, numpy out, for the training loader's threads). Where in / out is an integer k
+  on both axes, each output is the mean of its k x k block: the sum times
+  the float32 1 / k^2, rounded half to even, except at k = 2, where it is
+  (sum + 2) >> 2. Otherwise each axis takes OpenCV's area table: output d
+  covers [d s, d s + s) with s = 1 / (out / in) in float64, and weighs each
+  source pixel by its overlap over s (float32 weights; partial cells under
+  1e-3 are dropped); the rows are summed first, then the columns, in
+  float32, and rounded half to even. Within one grey level of `cv2.resize`
+  (tests/test_torch_train_data.py states the share that differs).
+
+The colour conversions follow OpenCV's uint8 HSV, with hue in [0, 180):
+- `rgb_to_hsv_u8` (`COLOR_RGB2HSV`): V = max, S = diff * round(255 * 2^12 /
+  V) >> 12 and H from the max channel's sector times round(180 * 2^12 / (6
+  diff)), each rounded by adding 2^11 before the shift (an arithmetic
+  shift, so a negative H floors, then wraps by 180).
+- `hsv_to_rgb_u8` (`COLOR_HSV2RGB`): OpenCV's float32 sector formula on
+  h * 6 / 180, s / 255 and v / 255 (1 - s h and 1 - s (1 - h) in one
+  rounding, as a fused multiply-add gives them), times 255 and truncated,
+  as OpenCV's vectorised loop computes it. OpenCV takes the last pixels of each row
+  (fewer than its vector width) through a scalar loop that rounds instead,
+  so there the two can differ by one grey level.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -299,3 +322,107 @@ def resize_bilinear_u8(img, out_hw) -> torch.Tensor:
     rows = torch.lerp(f.index_select(0, y0), f.index_select(0, y1), wy.reshape(shape_y))
     out = torch.lerp(rows.index_select(1, x0), rows.index_select(1, x1), wx.reshape(shape_x))
     return torch.floor(out + 0.5).clamp_(0, 255).to(torch.uint8)
+
+
+def _area_taps(n_in: int, n_out: int):
+    """OpenCV's INTER_AREA table along one axis: (index [n_out, K], weight
+    [n_out, K] float32), padded with weight 0 at index 0."""
+    scale = 1.0 / (n_out / n_in)
+    rows = []
+    for d in range(n_out):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, n_in - fs1)
+        s2 = min(math.floor(fs2), n_in - 1)
+        s1 = min(math.ceil(fs1), s2)
+        taps = []
+        if s1 - fs1 > 1e-3:
+            taps.append((s1 - 1, (s1 - fs1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            taps.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((n_out, k), np.int64)
+    wgt = np.zeros((n_out, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (i, w) in enumerate(taps):
+            idx[d, j], wgt[d, j] = i, w
+    return idx, wgt
+
+
+def resize_area_u8(img: np.ndarray, out_hw) -> np.ndarray:
+    """Shrink a uint8 image [H, W] or [H, W, C] to out_hw = (H', W') as
+    OpenCV's INTER_AREA does (see the module docstring). Returns uint8."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_area_u8 takes uint8 images, not {img.dtype}")
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if oh > h or ow > w:
+        raise ValueError(f"resize_area_u8 shrinks only: {(h, w)} -> {(oh, ow)}")
+    sy, sx = 1.0 / (oh / h), 1.0 / (ow / w)
+    ky, kx = round(sy), round(sx)
+    eps = np.finfo(np.float64).eps
+    if abs(sy - ky) < eps and abs(sx - kx) < eps:
+        total = sum(img[i:oh * ky:ky, j:ow * kx:kx].astype(np.int32)
+                    for i in range(ky) for j in range(kx))
+        if ky == 2 and kx == 2:
+            return ((total + 2) >> 2).astype(np.uint8)
+        out = np.rint(total.astype(np.float32) * np.float32(1.0 / (ky * kx)))
+        return np.clip(out, 0, 255).astype(np.uint8)
+    yi, yw = (torch.from_numpy(a) for a in _area_taps(h, oh))
+    xi, xw = (torch.from_numpy(a) for a in _area_taps(w, ow))
+    src = torch.from_numpy(np.ascontiguousarray(img))
+    tail = (1,) * (img.ndim - 2)
+    cols = src.index_select(1, xi[:, 0]).float() * xw[:, 0].reshape(1, -1, *tail)
+    for j in range(1, xi.shape[1]):
+        cols += src.index_select(1, xi[:, j]).float() * xw[:, j].reshape(1, -1, *tail)
+    out = cols.index_select(0, yi[:, 0]) * yw[:, 0].reshape(-1, 1, *tail)
+    for j in range(1, yi.shape[1]):
+        out += cols.index_select(0, yi[:, j]) * yw[:, j].reshape(-1, 1, *tail)
+    return torch.round(out).clamp_(0, 255).to(torch.uint8).numpy()
+
+
+_HSV_SHIFT = 12
+_SDIV = np.concatenate([[0], np.rint((255 << _HSV_SHIFT) / np.arange(1, 256))]).astype(np.int32)
+_HDIV180 = np.concatenate(
+    [[0], np.rint((180 << _HSV_SHIFT) / (6.0 * np.arange(1, 256)))]).astype(np.int32)
+# OpenCV's sector table: which of (v, p, q, t) is (b, g, r) in each sixth of the hue circle.
+_SECTORS = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1], [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+
+
+def rgb_to_hsv_u8(img: np.ndarray) -> np.ndarray:
+    """RGB uint8 [..., 3] -> HSV uint8 [..., 3] as cv2.COLOR_RGB2HSV: hue
+    in [0, 180), saturation and value in [0, 255]."""
+    rgb = np.asarray(img).astype(np.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = np.maximum(np.maximum(r, g), b)
+    diff = v - np.minimum(np.minimum(r, g), b)
+    half = 1 << (_HSV_SHIFT - 1)
+    s = (diff * _SDIV[v] + half) >> _HSV_SHIFT
+    h = np.where(v == r, g - b, np.where(v == g, b - r + 2 * diff, r - g + 4 * diff))
+    h = (h * _HDIV180[diff] + half) >> _HSV_SHIFT
+    h = np.where(h < 0, h + 180, h)
+    return np.stack([h, s, v], -1).astype(np.uint8)
+
+
+def hsv_to_rgb_u8(hsv: np.ndarray) -> np.ndarray:
+    """HSV uint8 [..., 3] (hue in [0, 180)) -> RGB uint8 as
+    cv2.COLOR_HSV2RGB's vectorised loop computes it (see the module
+    docstring)."""
+    hsv = np.asarray(hsv)
+    one, inv255 = np.float32(1.0), np.float32(1.0 / 255.0)
+    h = hsv[..., 0].astype(np.float32) * np.float32(6.0 / 180.0)
+    s = hsv[..., 1].astype(np.float32) * inv255
+    v = hsv[..., 2].astype(np.float32) * inv255
+    sector = np.trunc(h)
+    h = h - sector
+
+    def one_minus(a, b):  # 1 - a * b in one rounding, as a fused multiply-add gives it
+        return (1.0 - a.astype(np.float64) * b).astype(np.float32)
+
+    tab = np.stack([v, v * (one - s), v * one_minus(s, h), v * one_minus(s, one - h)], -1)
+    picks = _SECTORS[sector.astype(np.int64) % 6]  # [..., 3]: (b, g, r) as indices into tab
+    bgr = np.take_along_axis(tab, picks, axis=-1) * np.float32(255.0)
+    return np.clip(np.trunc(bgr[..., ::-1]), 0, 255).astype(np.uint8)

@@ -660,3 +660,56 @@ def test_fuse_scan_on_the_card_matches_the_cpu(dev, tmp_path, method):
                   logger=lambda *a: None)
     points, colors = read_ply(str(tmp_path / "x.ply"))
     assert n == points.shape[0] > 0 and colors.shape == points.shape
+
+
+def hold_recorded_calls(specs, recorded, want):
+    """Every recorded launch of each kernel against its plain version."""
+    for name, calls in recorded.items():
+        assert len(calls) == want[name], name
+        for i, (args, kwargs) in enumerate(calls):
+            with torch.no_grad():
+                got = specs[name]["kernel"](*args, **kwargs)
+                ref = specs[name]["plain"](*args, **kwargs)
+            ok, err, detail, tol = specs[name]["compare"](got, ref)
+            assert ok, f"{name} call {i}: {detail} (tolerance {tol})"
+
+
+def test_validation_forward_at_b8_matches_plain(dev):
+    """The validation batch of the training run (B=8, 5 views, 512x640, 192
+    depths): every launch of K1-K6 in one eval forward against its plain
+    version, at chip_smoke.py's tolerances."""
+    import chip_smoke
+    from mvsformer_torch.config import ModelConfig
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+
+    model = build_model(ModelConfig(), device=dev)
+    random_init_(model, torch.Generator().manual_seed(0))
+    specs = chip_smoke.eval_kernel_specs(model)
+    request = chip_smoke.synthetic_request(torch, 8, 5, 512, 640, device=dev)
+    recorded, (depth, conf, _) = chip_smoke.record_calls(torch, specs, make_infer_fn(model),
+                                                         *request)
+    assert depth.shape == (8, 512, 640) and bool(torch.isfinite(depth).all())
+    hold_recorded_calls(specs, recorded, chip_smoke.EVAL_PER_BATCH)
+
+
+def test_training_micro_batch_at_a_non_512_crop_matches_plain(dev):
+    """One training micro-batch at 768x1024 (B=1, 5 views, 192 depths):
+    every launch of K7 and K8 against its plain version, and a finite loss
+    and gradient."""
+    import chip_smoke
+    from mvsformer_torch.config import Config
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.train.step import TrainStep
+
+    cfg = Config()
+    model = build_model(cfg.arch, device=dev, train=True)
+    random_init_(model, torch.Generator().manual_seed(1))
+    step = TrainStep(model, cfg, seed=0)
+    specs = chip_smoke.train_kernel_specs(per_step=None)
+    batch = chip_smoke.synthetic_batch(torch, 1, 5, 768, 1024, device=dev, with_gt=True)
+    recorded, metrics = chip_smoke.record_calls(torch, specs, step, batch)
+    assert np.isfinite(metrics["loss"]) and metrics["micro_batches"] == 1
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+               if p.grad is not None)
+    hold_recorded_calls(specs, recorded, chip_smoke.TRAIN_PER_MICRO)

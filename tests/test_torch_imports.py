@@ -3,7 +3,9 @@
 `mvsformer_torch` imports torch, never JAX, flax or the JAX package (not
 even its JAX-free modules), nor Triton, nor an image library (OpenCV, PIL,
 torchvision: the machine with the card has none, so the port keeps its own
-codecs), and neither does `chip_smoke.py`. Its entry
+codecs), nor orbax or TensorBoard (its checkpoints are `torch.save` files,
+its scalars go to the log and a JSON-lines file), and neither does
+`chip_smoke.py`. Its entry
 points run on CUDA unless the caller asks for the CPU, and raise when CUDA
 is asked for and absent.
 """
@@ -35,6 +37,12 @@ IMAGE_LIBRARIES = ("cv2", "PIL", "torchvision")
 PIPELINE_MODULES = ("utils.pfm", "utils.cams", "utils.ply", "utils.image", "data.augment",
                     "data.scan_lists", "data.eval_dataset", "data.loader", "utils.metrics",
                     "ops.fusion", "utils.convert_weights", "infer", "fuse", "test")
+# The training run's modules (the data layer, the loader, checkpoints, the
+# trainer and its command line).
+TRAINING_MODULES = ("config", "data.dtu", "data.blended", "data.loader", "train.meters",
+                    "train.checkpoint", "train.optim", "train.step", "train.trainer",
+                    "train.__main__", "utils.logging")
+TRAINING_LIBRARIES = ("orbax", "tensorboardX", "tensorboard", "torch.utils.tensorboard")
 
 
 def port_files():
@@ -105,18 +113,30 @@ def test_no_port_file_imports_an_image_library(path):
 
 def test_the_pipeline_modules_are_among_the_port_files():
     files = set(port_files())
-    for name in PIPELINE_MODULES:
+    for name in PIPELINE_MODULES + TRAINING_MODULES:
         path = os.path.join(REPO, "mvsformer_torch", *name.split(".")) + ".py"
         assert path in files, name
+
+
+def library_of(name, libraries):
+    """The entry of `libraries` that module `name` is, or is inside of."""
+    return next((lib for lib in libraries if name == lib or name.startswith(lib + ".")), None)
+
+
+@pytest.mark.parametrize("path", port_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_file_imports_orbax_or_tensorboard(path):
+    bad = [n for n in imported_names(path) if library_of(n, TRAINING_LIBRARIES)]
+    assert not bad, f"{path} imports {bad}"
 
 
 def test_importing_the_pipeline_leaves_image_libraries_out_of_sys_modules():
     code = (
         "import importlib, sys\n"
-        f"for m in {PIPELINE_MODULES!r}:\n"
+        f"for m in {PIPELINE_MODULES + TRAINING_MODULES!r}:\n"
         "    importlib.import_module('mvsformer_torch.' + m)\n"
         "import chip_smoke\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {IMAGE_LIBRARIES + FORBIDDEN!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {IMAGE_LIBRARIES + FORBIDDEN!r}\n"
+        f"       or any(m == t or m.startswith(t + '.') for t in {TRAINING_LIBRARIES!r})]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=300)

@@ -356,10 +356,11 @@ def test_cli_runs_save_depth_and_fusion_on_the_cpu(tree, ckpt, tmp_path):
     (["--dtype", "bf16"], "bf16"),
     (["--data_parallel", "2"], "ROADMAP A5"),
     (["--view_parallel", "2"], "ROADMAP A5"),
-    ([], "ROADMAP A4"),
+    (["--which_ckpt", "orbax_best"], "ROADMAP A4"),
     (["--torch_ckpt", "x.pth", "--eval_view_chunk", "2"], "eval_view_chunk"),
 ])
 def test_cli_refuses_what_is_not_ported(tree, ckpt, tmp_path, argv, match):
+    os.makedirs(os.path.join(ckpt["run"], "orbax_best"), exist_ok=True)  # a JAX checkpoint dir
     with pytest.raises(NotImplementedError, match=match):
         port_cli.main(["--testpath", tree["data"], "--ckpt_dir", ckpt["run"], "--outdir",
                        str(tmp_path), "--device", "cpu"] + argv)
@@ -369,7 +370,7 @@ def test_cli_help_states_the_departures(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    for needle in ("--device replaces --platform", "fp32 only", "--torch_ckpt only",
+    for needle in ("--device replaces --platform", "fp32 only", "orbax restore: ROADMAP A4",
                    "ROADMAP A5", "no JPEG decoder", "written as PNG"):
         assert needle in text, needle
 
