@@ -119,9 +119,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    at each of the 25 crop sizes one training micro-batch and one eval
    forward of 1 sample run, all outputs finite. Each kernel's entry of the
    kernels line adds these checks and the CLI runs' launches.
-13. Print one JSON line of per-kernel numbers, then, last, the result line
+13. DINOMVSNet (MVSFormer-P) as `configs/config_mvsformer-p.json` ships
+   it: vit_small at full width (384 wide, 12 blocks, 6 heads, patch 16) on
+   the 0.5x images, the CLS-attention ViT decoder, the same FPN and
+   cascade, `fix`; weights, CLS token, position embedding and BN stats
+   from a seeded generator. Serve the DTU request through `make_infer_fn`
+   (one warm-up, 3 timed requests, counts set to 0 before each): K1-K3 4
+   launches, K4 1, K5 3 and K6 none (the ViT has no GSA); print the
+   request ms, peak memory, ms per layer and the idle share; check the
+   outputs as phase 5 does; hold K1-K5 to their plain versions at every
+   launch of one request (the same bits in 5 runs); run the __graft_entry__
+   request on the card and on the CPU (phase 7's bounds); run `python -m
+   mvsformer_torch.test` with the -p config on phase 11's eval scan from a
+   DINOMVSNet checkpoint in the reference's layout, view 0 against
+   `make_infer_fn` within the card-to-CPU bounds. Then train at phase 8's
+   shape with the -p config (B=8 as 2 micro-batches of 4, 5 views, 512x640,
+   192 depths, fix): one warm-up and 3 timed steps, K7/K8 4 launches a
+   micro-batch and K1-K6 none, the loss and every trainable gradient finite
+   and non-zero, no ViT tensor with a gradient and every one bit-equal
+   after the steps; one fp32 step on the card against the CPU at phase 10's
+   shape (phase 10's bounds; the frozen tensors unmoved on both). Each
+   kernel's entry of the kernels line adds this phase's checks and one
+   request's and one step's launches.
+14. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
-   the CLI runs' output to chiprun_out/training_run_*.log.
+   the CLI runs' output to chiprun_out/training_run_*.log and
+   chiprun_out/dino_test.log.
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
@@ -493,6 +516,31 @@ def small_request_errors(torch, model, make_infer_fn):
     return errs
 
 
+def check_outputs(torch, depth, conf, decode_calls, decode):
+    """Phase 5's checks of one DTU request's outputs: shapes, finite values,
+    depth within [DEPTH_MIN, DEPTH_MAX] and each stage's depth (`decode`
+    run again on its recorded inputs) within its hypotheses, confidence in
+    (0, 1]. Raises on a failure; returns the line to print."""
+    if tuple(depth.shape) != (B, H, W) or tuple(conf.shape) != (B, H, W):
+        raise RuntimeError(f"output shapes {tuple(depth.shape)}, {tuple(conf.shape)}")
+    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
+        raise RuntimeError("non-finite depth or confidence")
+    dmin, dmax = float(depth.min()), float(depth.max())
+    if dmin < DEPTH_MIN or dmax > DEPTH_MAX:
+        raise RuntimeError(f"depth range [{dmin}, {dmax}] outside [{DEPTH_MIN}, {DEPTH_MAX}]")
+    cmin, cmax = float(conf.min()), float(conf.max())
+    if cmin <= 0.0 or cmax > 1.0:
+        raise RuntimeError(f"confidence range [{cmin}, {cmax}] outside (0, 1]")
+    for s, (args, _) in enumerate(decode_calls):
+        dv_s = args[1]
+        with torch.inference_mode():
+            d_s, _ = decode(*args)
+        lo, hi = float(dv_s.min()), float(dv_s.max())
+        if float(d_s.min()) < lo - 1e-3 or float(d_s.max()) > hi + 1e-3:
+            raise RuntimeError(f"stage {s + 1}: depth outside its hypotheses [{lo}, {hi}]")
+    return f"outputs ok: depth [{dmin:.3f}, {dmax:.3f}], conf [{cmin:.6f}, {cmax:.6f}]"
+
+
 def rel_compare(rtol_of_scale, names, floor=1.0):
     """Compare outputs one by one: |got - want| <= rtol * max(floor, max|want|).
     A floor of 0 makes the bound relative to the output's own scale, for
@@ -772,6 +820,12 @@ def compare_steps(torch, card_model, cpu_model, before, card_metrics, cpu_metric
     errs["running_stats"] = worst_stat
     card_p, worst_upd = dict(card_model.named_parameters()), 0.0
     for n, p in cpu_model.named_parameters():
+        if n not in cpu_g:  # frozen (`fix`): bit-equal to the start on both
+            if not (bit_equal(torch, p.detach(), before[n])
+                    and bit_equal(torch, card_p[n].detach().cpu(), before[n])):
+                ok = False
+                lines.append(f"frozen {n} moved")
+            continue
         lr = opt_cfg.vit_lr if n.startswith("vit.") else opt_cfg.lr
         got = card_p[n].detach().cpu() - before[n]
         want = p.detach() - before[n]
@@ -1960,6 +2014,250 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
 
 
 
+# DINOMVSNet (phase 13): configs/config_mvsformer-p.json's model served and
+# trained as phases 4-11 serve and train TwinMVSNet.
+DINO_CONFIG = "configs/config_mvsformer-p.json"
+# The -p config's arch as this phase holds it: vit_small (384 wide, 12
+# blocks, 6 heads, patch 16) on the 0.5x images, the attention fusion, fix.
+DINO_ARCH = ("dino", "vit_small", 16, 0.5, True, True, [32, 16, 8, 4], [8, 16, 32, 64], "ce")
+
+
+def dino_phase(torch, card, eval_specs, device="cuda"):
+    """Phase 13. `eval_specs`: phase 4's K1-K6 specs; DINOMVSNet launches
+    K6 no time. Returns {"rows": K1-K5's checked launches, "launches": one
+    request's and one training step's counts, "details"}."""
+    import copy
+    import math
+    import shutil
+
+    import numpy as np
+
+    from mvsformer_torch.config import load_config, save_config
+    from mvsformer_torch.data.eval_dataset import MVSEvalDataset
+    from mvsformer_torch.data.loader import collate
+    from mvsformer_torch.infer import STAGES, make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.step import TrainStep
+    from mvsformer_torch.utils.pfm import read_pfm
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, DINO_CONFIG))
+    arch, va = cfg.arch, cfg.arch.vit_args
+    if (arch.model_type, va.vit_arch, va.patch_size, va.rescale, va.att_fusion, arch.fix,
+            arch.ndepths, arch.feat_chs, arch.depth_type) != DINO_ARCH:
+        raise RuntimeError(f"{DINO_CONFIG} no longer gives the model this phase holds")
+    specs = {n: dict(s, per_request=0 if n == "gsa_attention" else s["per_request"])
+             for n, s in eval_specs.items()}
+
+    # 13a. The model.
+    t0 = time.perf_counter()
+    model = build_model(arch, device=device)
+    random_init_(model, torch.Generator().manual_seed(0))
+    vit = model.vit
+    print(f"DINOMVSNet ({DINO_CONFIG}): {va.vit_arch} {vit.embed_dim} wide, "
+          f"{len(vit.blocks)} blocks, {vit.num_heads} heads, patch {vit.patch_size}, fp32, "
+          f"{sum(p.numel() for p in model.parameters())} parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    request = synthetic_request(torch, B, V, H, W, device=device)
+    fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+
+    # 13b. The DTU request: one warm-up, then timed requests with the counts
+    # set to 0 just before each and read just after.
+    fn(*request)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for _ in range(N_REQUESTS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, _ = fn(*request)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        for name, spec in specs.items():
+            if counts.get(name, 0) != spec["per_request"]:
+                raise RuntimeError(f"DINO {name}: {counts.get(name, 0)} launches in a "
+                                   f"request, want {spec['per_request']}")
+        launches = launches or counts
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = sum(times) / len(times)
+    print(f"DINO launches per request, the same in each of {N_REQUESTS}: {launches}")
+    print("DINO requests: " + ", ".join(f"{t * 1e3:.2f}" for t in times)
+          + f" ms; mean {mean_s * 1e3:.2f} ms, {B / mean_s:.4f} depth-maps/s, peak memory "
+          f"{peak_gb:.3f} GB [{card}]", flush=True)
+    layers = layer_breakdown(torch, model, fn, request)
+    print("DINO layers (device ms, one request): " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
+    busy_ms, wall_ms, top = device_busy(torch, fn, request)
+    if busy_ms is None:
+        print(f"DINO profiled request: {wall_ms:.2f} ms wall; device busy share not measured "
+              f"(the profiler saw no device events)")
+    else:
+        print(f"DINO profiled request: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms of kernels, "
+              f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} [{card}]")
+        for name, t in top:
+            print(f"  {t:9.3f} ms  {name[:110]}")
+
+    # 13c-d. The outputs, and K1-K5 against their plain versions on the
+    # tensors this forward fed them, at every launch of one request.
+    recorded, _ = record_calls(torch, specs, fn, *request)
+    print("DINO " + check_outputs(torch, depth, conf, recorded["depth_decode"],
+                                  specs["depth_decode"]["kernel"]))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for name, calls in recorded.items():
+        if len(calls) != specs[name]["per_request"]:
+            raise RuntimeError(f"DINO {name}: recorded {len(calls)} calls, "
+                               f"want {specs[name]['per_request']}")
+        if calls:
+            rows[name] = [check_kernel(torch, card, name, specs[name],
+                                       "DINO " + call_label(name, i, args), args, kwargs)
+                          for i, (args, kwargs) in enumerate(calls)]
+    del recorded
+
+    # 13e. The __graft_entry__ request on the card and on the CPU.
+    e2e = small_request_errors(torch, model, make_infer_fn)
+    e2e_ok = all(e <= (E2E_DEPTH_ATOL if k == "refined_depth" else E2E_CONF_ATOL)
+                 for k, e in e2e.items())
+    print(f"DINO request {E2E_SHAPE} on the card against the CPU: max_abs_err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in e2e.items())
+          + f" (tolerance depth {E2E_DEPTH_ATOL:g}, confidence {E2E_CONF_ATOL:g}) "
+          + ("ok" if e2e_ok else "FAILED"), flush=True)
+    if not e2e_ok:
+        raise RuntimeError("the DINO forward on the card disagrees with the CPU forward")
+
+    # 13g. The test CLI on phase 11's eval scan, from a checkpoint in the
+    # reference's layout, against make_infer_fn.
+    root = os.path.join(here, "build", "dino_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        listfile = os.path.join(root, "scans.txt")
+        with open(listfile, "w") as f:
+            f.write("scan1\n")
+        torch.save({"state_dict": model.state_dict()}, os.path.join(root, "dino.pth"))
+        save_config(cfg, os.path.join(root, "config.json"))
+        out = os.path.join(root, "test_out")
+        test_s = run_cli("mvsformer_torch.test", [
+            "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", root,
+            "--torch_ckpt", os.path.join(root, "dino.pth"), "--outdir", out, "--skip_fusion",
+            "--max_h", str(H), "--max_w", str(W), "--ndepths", str(NDEPTH_FULL),
+            "--num_view", str(PIPE_NUM_VIEW)] + ([] if device == "cuda" else ["--device", device]),
+            "dino_test")
+        ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
+                            interval_scale=1.06, max_h=H, max_w=W)
+        sample = collate([ds[0]])
+        d0, c0, _ = fn(sample["imgs"], {k: sample["proj_matrices"][k] for k in STAGES},
+                       sample["depth_values"])
+        gap_d = float(np.abs(read_pfm(os.path.join(out, "scan1", "depth_est", "00000000.pfm"))[0]
+                             - d0[0].cpu().numpy()).max())
+        gap_c = float(np.abs(np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
+                             - c0[0].cpu().numpy()).max())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"DINO test CLI ({test_s:.1f} s): view 0 against make_infer_fn: depth {gap_d:.3e}, "
+          f"confidence {gap_c:.3e} (tolerance {E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})", flush=True)
+    if gap_d > E2E_DEPTH_ATOL or gap_c > E2E_CONF_ATOL:
+        raise RuntimeError("the test CLI's DINO view 0 disagrees with make_infer_fn")
+    del model, fn, request, depth, conf, d0, c0
+    torch.cuda.empty_cache()
+
+    # 13f. Training at the JAX package's training shape, `fix` on.
+    sbm = cfg.data.multi_scale_args.scale_batch_map
+    if cfg.data.batch_size != TRAIN_B or int(sbm[str(TRAIN_H)]) != TRAIN_MICRO:
+        raise RuntimeError(f"{DINO_CONFIG} no longer gives the training shape")
+    n_micro = TRAIN_B // TRAIN_MICRO
+    per_step = {n: (len(arch.ndepths) * n_micro if n in TRAIN_PER_MICRO else 0)
+                for n in list(specs) + list(TRAIN_PER_MICRO)}
+    model = build_model(arch, device=device, train=True)
+    random_init_(model, torch.Generator().manual_seed(1))
+    step = TrainStep(model, cfg, seed=0)
+    vit_before = {k: v.clone() for k, v in model.vit.state_dict().items()}
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_times, metrics, step_launches = [], [], None
+    for _ in range(N_STEPS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        metrics.append(step(batch))
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        if {n: counts.get(n, 0) for n in per_step} != per_step or set(counts) - set(per_step):
+            raise RuntimeError(f"DINO training step launches {counts}, want {per_step}")
+        step_launches = step_launches or counts
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_step = sum(step_times) / len(step_times)
+    if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k.startswith("loss")):
+        raise RuntimeError("non-finite DINO training loss")
+    bad = [n for n, g in grads_of(model).items()
+           if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    with_grad = [n for n, p in model.vit.named_parameters()
+                 if p.requires_grad or p.grad is not None]
+    moved = [k for k, v in model.vit.state_dict().items()
+             if not bit_equal(torch, v, vit_before[k])]
+    if bad or with_grad or moved:
+        raise RuntimeError(f"DINO training: bad gradients {bad[:8]}, ViT tensors with a "
+                           f"gradient {with_grad[:8]}, moved {moved[:8]}")
+    print(f"DINO training ({TRAIN_B} as {n_micro} micro-batches of {TRAIN_MICRO}, {TRAIN_V} "
+          f"views, {TRAIN_H}x{TRAIN_W}, {NDEPTH_FULL} depths, fix): steps "
+          + ", ".join(f"{t * 1e3:.2f}" for t in step_times)
+          + f" ms; mean {mean_step * 1e3:.2f} ms, {1 / mean_step:.4f} train-steps/s, peak memory "
+          f"{train_peak_gb:.2f} GB; launches per step {step_launches}; loss "
+          f"{metrics[-1]['loss']:.5f}; all {len(trainable)} trainable gradients finite and "
+          f"non-zero; the ViT's {len(vit_before)} tensors took no gradient and are bit-equal "
+          f"after {N_STEPS + 1} steps [{card}]", flush=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    # One fp32 step on the card against the CPU at phase 10's shape.
+    sb, sv, sh, sw = STEP_SHAPE
+    small = copy.deepcopy(cfg)
+    small.optimizer.warmup_steps = 0
+    small.data.multi_scale_args.scale_batch_map = {str(sh): 1}
+    cpu_model = build_model(small.arch, device="cpu", train=True)
+    random_init_(cpu_model, torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    t0 = time.perf_counter()
+    card_metrics = TrainStep(card_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device=device, with_gt=True))
+    cpu_metrics = TrainStep(cpu_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device="cpu", with_gt=True))
+    ok, step_errs, lines = compare_steps(torch, card_model, cpu_model, before, card_metrics,
+                                         cpu_metrics, small.optimizer)
+    print(f"DINO training step {STEP_SHAPE} on the card against the CPU "
+          f"({time.perf_counter() - t0:.1f} s): loss {card_metrics['loss']:.6f} / "
+          f"{cpu_metrics['loss']:.6f}; worst errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in step_errs.items())
+          + " (phase 10's bounds) " + ("ok" if ok else "FAILED"), flush=True)
+    for line in lines[-20:]:
+        print(f"  {line}")
+    if not ok:
+        raise RuntimeError("the DINO training step on the card disagrees with the CPU step")
+
+    total = dict(launches)
+    for n, c in step_launches.items():
+        total[n] = total.get(n, 0) + c
+    return {"rows": rows, "launches": total, "details": {
+        "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
+        "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
+        "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
+        "e2e_small_errors": e2e, "test_cli_s": test_s, "view0_gap": [gap_d, gap_c],
+        "step_ms": [t * 1e3 for t in step_times], "train_steps_per_s": 1 / mean_step,
+        "train_peak_memory_gb": train_peak_gb, "step_launches": step_launches,
+        "metrics": metrics, "card_vs_cpu_step": step_errs}}
+
+
 def main() -> int:
     import torch
 
@@ -2110,24 +2408,7 @@ def main() -> int:
             print(f"  {t:9.3f} ms  {name[:110]}")
 
     # 5. Outputs.
-    if tuple(depth.shape) != (B, H, W) or tuple(conf.shape) != (B, H, W):
-        raise RuntimeError(f"output shapes {tuple(depth.shape)}, {tuple(conf.shape)}")
-    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
-        raise RuntimeError("non-finite depth or confidence")
-    dmin, dmax = float(depth.min()), float(depth.max())
-    if dmin < DEPTH_MIN or dmax > DEPTH_MAX:
-        raise RuntimeError(f"depth range [{dmin}, {dmax}] outside [{DEPTH_MIN}, {DEPTH_MAX}]")
-    cmin, cmax = float(conf.min()), float(conf.max())
-    if cmin <= 0.0 or cmax > 1.0:
-        raise RuntimeError(f"confidence range [{cmin}, {cmax}] outside (0, 1]")
-    for s, (args, _) in enumerate(recorded["depth_decode"]):
-        dv_s = args[1]
-        with torch.inference_mode():
-            d_s, _ = originals["depth_decode"](*args)
-        lo, hi = float(dv_s.min()), float(dv_s.max())
-        if float(d_s.min()) < lo - 1e-3 or float(d_s.max()) > hi + 1e-3:
-            raise RuntimeError(f"stage {s + 1}: depth outside its hypotheses [{lo}, {hi}]")
-    print(f"outputs ok: depth [{dmin:.3f}, {dmax:.3f}], conf [{cmin:.6f}, {cmax:.6f}]")
+    print(check_outputs(torch, depth, conf, recorded["depth_decode"], originals["depth_decode"]))
 
     # 6. Kernels against their plain versions, TF32 off.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2181,16 +2462,25 @@ def main() -> int:
     pipeline = pipeline_phase(torch, card, specs)
 
     # 12. The training run through the CLI, its kernels at the run's shapes,
-    # the crop sweep. Each kernel's entry adds these launches and checks.
+    # the crop sweep.
     torch.cuda.empty_cache()
     run = training_run_phase(torch, card, specs)
-    for row in kernels:
-        name = row["name"]
-        if name in run["rows"]:
-            checked = (per_call[name] if name in per_call else train["per_call"][name])
-            row.update(kernel_row(name, dict(specs, **train_kernel_specs(None))[name],
-                                  checked + run["rows"][name],
-                                  row["launches"] + run["launches"].get(name, 0)))
+
+    # 13. DINOMVSNet served and trained.
+    torch.cuda.empty_cache()
+    dino = dino_phase(torch, card, specs)
+
+    # Each kernel's entry sums its checks and launches over the phases.
+    all_specs = dict(specs, **train_kernel_specs(None))
+    checked = dict(per_call, **train["per_call"])
+    total = {row["name"]: row["launches"] for row in kernels}
+    for phase in (run, dino):
+        for name, rows in phase["rows"].items():
+            checked[name] = checked[name] + rows
+        for name, n in phase["launches"].items():
+            total[name] = total.get(name, 0) + n
+    kernels = [kernel_row(name, all_specs[name], checked[name], total[name])
+               for name in all_specs]
 
     details = {
         "card": card, "device": kind, "torch": torch.__version__,
@@ -2207,6 +2497,7 @@ def main() -> int:
         "training": train,
         "pipeline": pipeline,
         "training_run": dict(run["details"], rows=run["rows"], launches=run["launches"]),
+        "dino": dict(dino["details"], rows=dino["rows"], launches=dino["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -5,8 +5,8 @@ the model fields that change what the network computes (and those that
 `build_model` rejects until a later slice ports them), and the whole data,
 optimizer and trainer sections that the training run reads. Routing knobs
 that only pick between exact rewrites of the same maths on a TPU have no
-counterpart here, nor have the DINO model's fields (ROADMAP A6). Every field
-that both packages have keeps the JAX default. `load_config` reads the same
+counterpart here. Every field that both packages have keeps the JAX
+default. `load_config` reads the same
 JSON layouts (this package's, the JAX package's and the reference
 `arch.args` / `data_loader` / `optimizer.args` layout) and ignores keys it
 does not know; `save_config` writes this package's layout, which the JAX
@@ -23,10 +23,19 @@ from typing import Any
 
 @dataclass
 class ViTConfig:
+    twin: bool = True  # False: the reference's flag for the DINO ViT (model_type "dino")
     rescale: float = 0.5  # backbone input size over the image size
-    vit_arch: str = "alt_gvt_small"
-    vit_path: str = ""  # pretrained Twins .pth merged at init (train CLI --vit_path)
+    do_vit: bool = True  # read by neither model (kept for the config files)
+    patch_size: int = 16  # DINO ViT patch
+    qk_scale: str | float = "default"  # DINO attention scale: "default" or a log-N base
+    vit_arch: str = "alt_gvt_small"  # alt_gvt_small/base/large | vit_small | vit_base
+    vit_path: str = ""  # pretrained backbone .pth merged at init (train CLI --vit_path)
+    vit_ch: Any = field(default_factory=lambda: [64, 128, 256, 512])  # DINO: an int, else 384
     out_ch: int = 64
+    att_fusion: bool = True  # DINO: CLS-attention fusion in the ViT decoder
+    nhead: int = 6  # read by neither model (the heads are the ViT preset's)
+    multi_scale_decoder: bool = False  # read by neither model
+    cross_att: bool = False  # DINO cross-view attention (not ported: ROADMAP A6)
     drop_path_rate: float | None = None  # stochastic depth; None = the preset's
 
 
@@ -118,6 +127,7 @@ class OptimizerConfig:
     vit_lr: float = 3.0e-5  # learning rate of the backbone (`vit.*`)
     lr: float = 1.0e-3  # learning rate of everything else
     weight_decay: float = 0.01  # decoupled, on the backbone's matrices only
+    layer_decay: float = 0.75  # DINO: block i's LR is vit_lr * layer_decay^(depth - i)
     min_lr: float = 0.01  # final LR as a fraction of peak
     warmup_steps: int = 500
     grad_norm: float | None = None  # global-norm clip; None = no clip

@@ -1,12 +1,16 @@
-"""ViT-to-FPN decoder head (NCHW).
+"""ViT-to-FPN decoder heads (NCHW).
 
-Port of `TwinDecoderStage4` from `mvsformer_tpu/models/decoders.py`: the
-Twins pyramid (1/8..1/64 of the image) fused top-down into one 1/8-res map.
-The multi-scale and DINO decoders come with later slices.
+Port of `mvsformer_tpu/models/decoders.py`: `TwinDecoderStage4` fuses the
+Twins pyramid (1/8..1/64 of the image) top-down into one 1/8-res map;
+`VITDecoderStage4Single` gates the DINO ViT's 1/32-res tokens by the last
+block's CLS attention (`AttentionFusionSimple`) and upsamples them 4x to
+one 1/8-res map. The DINO decoder without the attention fusion and the
+multi-scale decoders come with a later slice (ROADMAP A6).
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
 from mvsformer_torch.models.blocks import ConvNormSeq, Deconv2dNormAct, Swish, gelu_tanh
@@ -36,3 +40,35 @@ class TwinDecoderStage4(nn.Module):
         x = self.smooth2(x)
         x = _up2(x) + self.inner3(x1)
         return self.smooth3(x)
+
+
+class AttentionFusionSimple(nn.Module):
+    """CLS-attention gating of ViT features: proj(conv_l([x, att]) *
+    conv_r(x * mean_heads(att))), each conv a 3x3 conv + BN + swish.
+    x [N, embed_dim, h, w], att [N, heads, h, w]."""
+
+    def __init__(self, embed_dim, heads, vit_ch, out_ch):
+        super().__init__()
+        self.conv_l = ConvNormSeq(embed_dim + heads, vit_ch, 3, Swish())
+        self.conv_r = ConvNormSeq(embed_dim, vit_ch, 3, Swish())
+        self.proj = nn.Conv2d(vit_ch, out_ch, 1)
+
+    def forward(self, x, att):
+        x1 = self.conv_l(torch.cat([x, att], dim=1))
+        x2 = self.conv_r(x * att.mean(dim=1, keepdim=True))
+        return self.proj(x1 * x2)
+
+
+class VITDecoderStage4Single(nn.Module):
+    """DINO tokens [N, embed_dim, h, w] and CLS attention -> one map of
+    `out_ch` channels at 4x the token grid. The two transposed convs sit in
+    one `Sequential` (reference keys `decoder.0/1` and `decoder.3/4`)."""
+
+    def __init__(self, embed_dim, heads, vit_ch=384, out_ch=64):
+        super().__init__()
+        self.attn = AttentionFusionSimple(embed_dim, heads, vit_ch, out_ch * 4)
+        self.decoder = nn.Sequential(*Deconv2dNormAct(out_ch * 4, out_ch * 2, gelu_tanh()),
+                                     *Deconv2dNormAct(out_ch * 2, out_ch, gelu_tanh()))
+
+    def forward(self, x, att):
+        return self.decoder(self.attn(x, att))

@@ -1,11 +1,15 @@
-"""TwinMVSNet (MVSFormer), its eval and training forwards, and its factory.
+"""TwinMVSNet (MVSFormer), the cascade it shares with DINOMVSNet, and the
+factory of both.
 
 Port of `mvsformer_tpu/models/mvsformer.py`: FPN encoder + Twins backbone
 fused by TwinDecoderStage4, then a 4-stage coarse-to-fine cascade of
 StageNets with inverse-depth (or metric) hypothesis scheduling and a
-stage-averaged confidence (ce; the last stage's for was). Inputs keep the
-JAX layout: images [B, V, H, W, 3], projections {stageK: [B, V, 2, 4, 4]},
-depth_values [B, Dfull]. Inside, maps are NCHW.
+stage-averaged confidence (ce; the last stage's for was). `CascadeMVSNet`
+holds that cascade; each model supplies its features
+(`extract_features`), and DINOMVSNet (`models/dino.py`) averages the
+confidences whatever the depth type, as the JAX DINOMVSNet does. Inputs
+keep the JAX layout: images [B, V, H, W, 3], projections {stageK: [B, V,
+2, 4, 4]}, depth_values [B, Dfull]. Inside, maps are NCHW.
 
 The forward follows `self.training`, as the JAX model follows its
 `training` argument: batch-statistics BN, stochastic depth in the backbone
@@ -33,32 +37,29 @@ from mvsformer_torch.ops.resize import resize_bicubic, resize_nearest
 STAGE_SCALES = (8, 4, 2, 1)  # stage1..stage4 feature-map downscale factors
 
 
-class TwinMVSNet(nn.Module):
+class CascadeMVSNet(nn.Module):
+    """The FPN and the StageNet cascade; a subclass adds its backbone and
+    `extract_features(imgs [N, 3, H, W], generator) -> 4 per-stage maps`.
+    `always_average`: the final confidence is the stages' mean for every
+    depth type (else for ce and mixup_ce only, the last stage's for the
+    rest)."""
+
+    always_average = False
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
         feat_chs = tuple(cfg.feat_chs)
         self.encoder = FPNEncoder(feat_chs)
         self.decoder = FPNDecoder(feat_chs)
-        self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
-        self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
-                                             cfg.vit_args.out_ch)
         self.fusions = nn.ModuleList(
             StageNet(nd, cfg.base_ch, cfg.model_th) for nd in cfg.ndepths)
 
-    def extract_features(self, imgs, generator=None):
-        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1)."""
-        conv01, conv11, conv21, conv31 = self.encoder(imgs)
+    def vit_input(self, imgs):
+        """The images bicubically rescaled by `vit_args.rescale`, in fp32."""
         vit_h = int(imgs.shape[2] * self.cfg.vit_args.rescale)
         vit_w = int(imgs.shape[3] * self.cfg.vit_args.rescale)
-        vit_imgs = resize_bicubic(imgs.float(), (vit_h, vit_w)).to(imgs.dtype)
-        if self.training and self.cfg.fix:
-            with torch.no_grad():
-                vit_feats = self.vit(vit_imgs, deterministic=True)
-        else:
-            vit_feats = self.vit(vit_imgs, generator=generator)
-        conv31 = conv31 + self.decoder_vit(*vit_feats)
-        return self.decoder(conv01, conv11, conv21, conv31)
+        return resize_bicubic(imgs.float(), (vit_h, vit_w)).to(imgs.dtype)
 
     def forward(self, imgs, proj_matrices, depth_values, tmp=2.0, generator=None):
         """imgs [B, V, H, W, 3]; proj_matrices {stageK: [B, V, 2, 4, 4]};
@@ -81,9 +82,10 @@ class TwinMVSNet(nn.Module):
 
         outputs = {}
         prev = None
-        # The stages' confidences are averaged for the ce decodes, as the JAX
-        # model does; other depth types return the last stage's.
-        averaged = cfg.depth_type in ("ce", "mixup_ce")
+        # The stages' confidences are averaged for the ce decodes (for every
+        # depth type in DINOMVSNet), as the JAX models do; otherwise the
+        # final confidence is the last stage's.
+        averaged = self.always_average or cfg.depth_type in ("ce", "mixup_ce")
         conf_sum = torch.zeros((B, H, W), dtype=torch.float32, device=imgs.device)
         depth_interval = depth_values[:, 1] - depth_values[:, 0]
         for stage_idx, ndepth in enumerate(cfg.ndepths):
@@ -116,15 +118,39 @@ class TwinMVSNet(nn.Module):
         return outputs
 
 
-def build_model(cfg: ModelConfig, device=None, train: bool = False) -> TwinMVSNet:
-    """The model on `device` (`cuda` unless the caller asks for the CPU;
-    raises if CUDA is asked for and absent), in eval mode, or in training
-    mode with `train=True`. Raises NotImplementedError for parts of the
-    configuration that later slices port."""
+class TwinMVSNet(CascadeMVSNet):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__(cfg)
+        self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
+        self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
+                                             cfg.vit_args.out_ch)
+
+    def extract_features(self, imgs, generator=None):
+        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1)."""
+        conv01, conv11, conv21, conv31 = self.encoder(imgs)
+        vit_imgs = self.vit_input(imgs)
+        if self.training and self.cfg.fix:
+            with torch.no_grad():
+                vit_feats = self.vit(vit_imgs, deterministic=True)
+        else:
+            vit_feats = self.vit(vit_imgs, generator=generator)
+        conv31 = conv31 + self.decoder_vit(*vit_feats)
+        return self.decoder(conv01, conv11, conv21, conv31)
+
+
+def build_model(cfg: ModelConfig, device=None, train: bool = False) -> CascadeMVSNet:
+    """TwinMVSNet (`model_type` "twin") or DINOMVSNet ("dino") on `device`
+    (`cuda` unless the caller asks for the CPU; raises if CUDA is asked for
+    and absent), in eval mode, or in training mode with `train=True`.
+    Raises NotImplementedError for parts of the configuration that later
+    slices port."""
     dev = resolve_device(device)
+    va, dino = cfg.vit_args, cfg.model_type == "dino"
     unsupported = {
-        "model_type": cfg.model_type != "twin",
-        "multi_scale": bool(cfg.multi_scale),
+        "model_type": cfg.model_type not in ("twin", "dino"),
+        "multi_scale (ROADMAP A6)": bool(cfg.multi_scale),
+        "att_fusion=false (ROADMAP A6)": dino and not va.att_fusion,
+        "cross_att (ROADMAP A6)": dino and bool(va.cross_att),
         "fusion_type": cfg.fusion_type != "cnn",
         "depth_type": cfg.depth_type not in ("ce", "was"),
         "norm_type": cfg.norm_type != "BN",
@@ -134,6 +160,10 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False) -> TwinMVSNe
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if dino:
+        from mvsformer_torch.models.dino import DINOMVSNet
+
+        return DINOMVSNet(cfg).to(dev).train(train)
     return TwinMVSNet(cfg).to(dev).train(train)
 
 
@@ -141,8 +171,9 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False) -> TwinMVSNe
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every weight from `generator` (a CPU generator, so the draw does
     not depend on the device): convs and linears ~ N(0, 1/fan_in), biases and
-    norm shifts ~ 0.05 N(0, 1), norm scales ~ 1 + 0.1 N(0, 1), and BN running
-    stats non-trivial (mean 0.1 N(0, 1), var 1 + 0.2 |N(0, 1)|)."""
+    norm shifts ~ 0.05 N(0, 1), norm scales ~ 1 + 0.1 N(0, 1), BN running
+    stats non-trivial (mean 0.1 N(0, 1), var 1 + 0.2 |N(0, 1)|), and a ViT's
+    bare parameters (`cls_token`, `pos_embed`) ~ 0.02 N(0, 1)."""
     def draw(t, std, mean=0.0, absolute=False):
         x = torch.randn(t.shape, generator=generator)
         x = x.abs() if absolute else x
@@ -165,4 +196,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             if isinstance(mod, nn.modules.batchnorm._BatchNorm):
                 draw(mod.running_mean, 0.1)
                 draw(mod.running_var, 0.2, 1.0, absolute=True)
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("cls_token", "pos_embed"):
+            draw(p, 0.02)
     return model

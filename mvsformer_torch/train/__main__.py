@@ -6,8 +6,10 @@ Port of the JAX package's `train.py`, with the same flags:
         --data_path /path/to/dtu_training [--resume | --finetune RUN_DIR]
 
 It builds the dataset of `data.type` (DTULoader or BlendedLoader) for the
-train and val lists, the threaded loaders, TwinMVSNet in fp32 (weights from
-`--seed`, and a pretrained Twins backbone with `--vit_path`), then trains
+train and val lists, the threaded loaders, the config's model in fp32
+(TwinMVSNet, or DINOMVSNet for `arch.model_type` "dino"; weights from
+`--seed`, and a pretrained Twins or DINO ViT backbone with `--vit_path`),
+then trains
 with validation and checkpoints in `save_dir/models/<name>/`, which holds
 `config.json`, `info.log`, `train_log.jsonl` and the `model_*.pth`
 checkpoints. `--resume` continues from that run dir's furthest checkpoint;
@@ -43,7 +45,8 @@ def parse_args(argv=None):
                         help="continue the run in save_dir/models/<name> from its furthest "
                              "checkpoint (model_last, or a later model_step)")
     parser.add_argument("--vit_path", type=str, default=None,
-                        help="pretrained Twins checkpoint (.pth), merged into the backbone "
+                        help="pretrained backbone checkpoint (.pth: Twins, or DINO's ViT for a "
+                             "dino config), merged into the backbone "
                              "(overrides arch.vit_args.vit_path)")
     parser.add_argument("--finetune", type=str, default=None,
                         help="run dir of a previous run to finetune from")

@@ -1,4 +1,4 @@
-"""One TwinMVSNet training step on one device.
+"""One training step of TwinMVSNet or DINOMVSNet on one device.
 
 Port of the single-device part of `mvsformer_tpu/parallel/train_step.py`
 (`make_grad_step`, `make_apply_step`) and of the step loop of
@@ -74,7 +74,8 @@ class TrainStep:
         self.seed = seed
         self.total_steps = max(1, steps_per_epoch) * cfg.trainer.epochs
         self.optimizer, self.scheduler = build_optimizer(
-            model, cfg.optimizer, self.total_steps, fix=cfg.arch.fix)
+            model, cfg.optimizer, self.total_steps, fix=cfg.arch.fix,
+            model_type=cfg.arch.model_type)
         self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
         self.global_step = 0
 

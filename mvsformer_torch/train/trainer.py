@@ -5,7 +5,8 @@ Port of `mvsformer_tpu/train/trainer.py` on one device, over
 training forward and loss, the backward, AdamW and the schedule):
 
 - `init_state` builds the optimizer and, with `arch.vit_args.vit_path`,
-  merges a pretrained Twins backbone; `state_dict`, `restore`,
+  merges a pretrained backbone (Twins or DINO's ViT); `state_dict`,
+  `restore`,
   `resume_auto` (the furthest of `model_last` and the mid-epoch
   `model_step`) and `finetune` (another run's checkpoint, with or without
   its Adam moments, its schedule reset or fast-forwarded) as the JAX
@@ -102,8 +103,9 @@ def validation_scalars(depth_est, depth_gt, mask, depth_values, is_blended: bool
 
 class Trainer:
     """Trains `model` on `train_loader`'s batches; without a model it builds
-    TwinMVSNet from `cfg.arch` on `device` (`cuda` unless the caller asks
-    for the CPU). `profile` is (dir, start step, number of steps)."""
+    the model of `cfg.arch` (TwinMVSNet or DINOMVSNet) on `device` (`cuda`
+    unless the caller asks for the CPU). `profile` is (dir, start step,
+    number of steps)."""
 
     def __init__(self, cfg: Config, train_loader, val_loader=None, model=None, device=None,
                  writer=None, logger=None, is_blended=False, debug=False, profile=None, seed=0):

@@ -2,7 +2,8 @@
 
 The port's modules carry the reference checkpoint's torch names, the keys
 that `mvsformer_tpu/utils/convert_weights.py` (`convert_full_twin`,
-`convert_twins`) reads. This module is the inverse of that converter: it
+`convert_twins`, `convert_full_dino`, `convert_dino_vit`) reads. This
+module is the inverse of those converters: it
 takes the JAX `{"params", "batch_stats"}` trees as nested dicts of numpy
 arrays and lays each tensor out for torch:
 
@@ -15,9 +16,11 @@ arrays and lays each tensor out for torch:
   running_var.
 
 Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
-the whole TwinMVSNet. `load_reference_checkpoint` loads a reference `.pth`
-as it is, since the names already agree, and `merge_pretrained_backbone`
-merges a pretrained Twins `.pth` into the backbone.
+the whole TwinMVSNet, `convert_flax_dino` the whole DINOMVSNet, and
+`convert_flax` either, by the tree. `load_reference_checkpoint` loads a
+reference `.pth` of either model as it is, since the names already agree,
+and `merge_pretrained_backbone` merges a pretrained Twins or DINO ViT
+`.pth` into the backbone.
 """
 
 from __future__ import annotations
@@ -126,6 +129,39 @@ def twins_state(params, depths=(2, 2, 10, 4), prefix="") -> dict:
     return sd
 
 
+def dino_vit_state(params, depth=12, prefix="") -> dict:
+    """flax DINOViT params -> torch DINO ViT keys (the inverse of
+    convert_dino_vit)."""
+    sd: dict = {f"{prefix}cls_token": params["cls_token"],
+                f"{prefix}pos_embed": params["pos_embed"]}
+    _plain(sd, f"{prefix}patch_embed.proj", params["patch_embed"])
+    _ln(sd, f"{prefix}norm", params["norm"])
+    for i in range(depth):
+        blk, key = params[f"block{i}"], f"{prefix}blocks.{i}"
+        _ln(sd, f"{key}.norm1", blk["norm1"])
+        _ln(sd, f"{key}.norm2", blk["norm2"])
+        _plain(sd, f"{key}.attn.qkv", blk["attn"]["qkv"], np.transpose)
+        _plain(sd, f"{key}.attn.proj", blk["attn"]["proj"], np.transpose)
+        _plain(sd, f"{key}.mlp.fc1", blk["fc1"], np.transpose)
+        _plain(sd, f"{key}.mlp.fc2", blk["fc2"], np.transpose)
+    return sd
+
+
+def vit_decoder_state(params, stats, prefix="") -> dict:
+    """flax VITDecoderStage4Single -> torch keys (the DINO decoder part of
+    convert_full_dino): the attention fusion, then the two transposed
+    convs at `decoder.0/1` and `decoder.3/4`."""
+    sd: dict = {}
+    for name in ("conv_l", "conv_r"):
+        _conv_block(sd, f"{prefix}attn.{name}", params["attn"][name], stats["attn"][name],
+                    conv_key="0", bn_key="1")
+    _plain(sd, f"{prefix}attn.proj", params["attn"]["proj"])
+    for name, keys in (("deconv1", ("0", "1")), ("deconv2", ("3", "4"))):
+        _conv_block(sd, f"{prefix}decoder", params[name], stats[name], conv_key=keys[0],
+                    bn_key=keys[1], deconv=True)
+    return sd
+
+
 def cost_reg_state(params, stats, three_d: bool, prefix="") -> dict:
     """CostRegNet (three_d=False) or CostRegNet3D (three_d=True)."""
     sd: dict = {}
@@ -154,21 +190,49 @@ def to_torch(sd: dict) -> dict:
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
-def convert_flax_twin(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
-                      vit_depths=(2, 2, 10, 4)) -> dict:
-    """JAX TwinMVSNet variables -> the port's TwinMVSNet `state_dict`."""
+def _cascade_state(params, batch_stats, ndepths, model_th) -> dict:
+    """The parts both models share: the FPN and the stages."""
     sd: dict = {}
     sd.update(encoder_state(params["encoder"], batch_stats["encoder"], "encoder."))
     sd.update(fpn_decoder_state(params["decoder"], batch_stats["decoder"], "decoder."))
-    sd.update(twin_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
-                                 "decoder_vit."))
-    sd.update(twins_state(params["vit"], vit_depths, "vit."))
     for i, nd in enumerate(ndepths):
         p, s = params[f"stage{i + 1}"], batch_stats[f"stage{i + 1}"]
         sd.update(vis_state(p["vis"], s["vis"], f"fusions.{i}.vis."))
         sd.update(cost_reg_state(p["cost_reg"], s["cost_reg"], nd <= model_th,
                                  f"fusions.{i}.cost_reg."))
+    return sd
+
+
+def convert_flax_twin(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
+                      vit_depths=(2, 2, 10, 4)) -> dict:
+    """JAX TwinMVSNet variables -> the port's TwinMVSNet `state_dict`."""
+    sd = _cascade_state(params, batch_stats, ndepths, model_th)
+    sd.update(twin_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
+                                 "decoder_vit."))
+    sd.update(twins_state(params["vit"], vit_depths, "vit."))
     return to_torch(sd)
+
+
+def convert_flax_dino(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
+                      vit_depth=12) -> dict:
+    """JAX DINOMVSNet variables -> the port's DINOMVSNet `state_dict`."""
+    sd = _cascade_state(params, batch_stats, ndepths, model_th)
+    sd.update(vit_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
+                                "decoder_vit."))
+    sd.update(dino_vit_state(params["vit"], vit_depth, "vit."))
+    return to_torch(sd)
+
+
+def convert_flax(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
+                 vit_depths=(2, 2, 10, 4)) -> dict:
+    """Either model's JAX variables -> the port's `state_dict`: DINOMVSNet's
+    where the backbone has a `cls_token` (its depth counted from the tree),
+    else TwinMVSNet's with the Twins stage depths `vit_depths`."""
+    vit = params["vit"]
+    if "cls_token" in vit:
+        depth = sum(1 for k in vit if k.startswith("block"))
+        return convert_flax_dino(params, batch_stats, ndepths, model_th, depth)
+    return convert_flax_twin(params, batch_stats, ndepths, model_th, vit_depths)
 
 
 def load_flax_twin(model, params, batch_stats) -> None:
@@ -179,16 +243,25 @@ def load_flax_twin(model, params, batch_stats) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+def load_flax_dino(model, params, batch_stats) -> None:
+    """Load JAX DINOMVSNet variables into the port's model (strict)."""
+    cfg = model.cfg
+    sd = convert_flax_dino(params, batch_stats, tuple(cfg.ndepths), cfg.model_th,
+                           len(model.vit.blocks))
+    model.load_state_dict(sd, strict=True)
+
+
 BUFFER_SUFFIXES = (".running_mean", ".running_var", ".num_batches_tracked")
 
 
 def convert_flax_grads(grads, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
                        vit_depths=(2, 2, 10, 4)) -> tuple[dict, dict]:
-    """A JAX gradient tree (the shape of `params`) and its `batch_stats` ->
-    ({parameter name: gradient}, {buffer name: running statistic}) in the
-    port's names. Every layout change of the bridge is a transpose or a flip,
-    which is linear, so a gradient maps exactly as its weight does."""
-    sd = convert_flax_twin(grads, batch_stats, ndepths, model_th, vit_depths)
+    """A JAX gradient tree (the shape of `params`, of either model) and its
+    `batch_stats` -> ({parameter name: gradient}, {buffer name: running
+    statistic}) in the port's names. Every layout change of the bridge is a
+    transpose or a flip, which is linear, so a gradient maps exactly as its
+    weight does."""
+    sd = convert_flax(grads, batch_stats, ndepths, model_th, vit_depths)
     params = {k: v for k, v in sd.items() if not k.endswith(BUFFER_SUFFIXES)}
     buffers = {k: v for k, v in sd.items()
                if k.endswith(BUFFER_SUFFIXES) and not k.endswith(".num_batches_tracked")}
@@ -196,17 +269,14 @@ def convert_flax_grads(grads, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
 
 
 def load_reference_checkpoint(path: str, model) -> None:
-    """Load a reference MVSFormer checkpoint (a torch `.pth` holding
-    {'state_dict': ...} or the state dict itself; a `module.` prefix, as
-    DataParallel saves it, is stripped) into the port's TwinMVSNet. The
-    port's modules carry the reference's names, so the load is strict."""
+    """Load a reference MVSFormer or MVSFormer-P checkpoint (a torch `.pth`
+    holding {'state_dict': ...} or the state dict itself; a `module.`
+    prefix, as DataParallel saves it, is stripped) into the port's
+    TwinMVSNet or DINOMVSNet. The port's modules carry the reference's
+    names, so the load is strict."""
     obj = torch.load(path, map_location="cpu", weights_only=False)
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     sd = {k.removeprefix("module."): torch.as_tensor(v) for k, v in sd.items()}
-    if "decoder_vit.attn.conv_l.0.weight" in sd:
-        raise NotImplementedError(
-            "a DINOMVSNet (MVSFormer-P) checkpoint: the port has no DINOMVSNet yet "
-            "(ROADMAP A6)")
     model.load_state_dict(sd, strict=True)
 
 

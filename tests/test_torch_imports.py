@@ -208,5 +208,5 @@ def test_load_config_reads_the_repo_configs_like_the_jax_package(name):
         assert getattr(port.vit_args, f.name) == getattr(ref.vit_args, f.name), f.name
     assert set(f.name for f in dataclasses.fields(ModelConfig)) < set(
         f.name for f in dataclasses.fields(JaxModelConfig))
-    assert set(f.name for f in dataclasses.fields(ViTConfig)) < set(
+    assert set(f.name for f in dataclasses.fields(ViTConfig)) <= set(
         f.name for f in dataclasses.fields(JaxViTConfig))

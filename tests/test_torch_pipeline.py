@@ -375,11 +375,53 @@ def test_cli_help_states_the_departures(capsys):
         assert needle in text, needle
 
 
-def test_a_dino_checkpoint_is_refused(tmp_path):
-    path = str(tmp_path / "dino.pth")
-    torch.save({"state_dict": {"decoder_vit.attn.conv_l.0.weight": torch.zeros(1)}}, path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        load_reference_checkpoint(path, None)
+def test_a_dino_checkpoint_serves_through_the_cli(tree, tmp_path):
+    """A DINOMVSNet (MVSFormer-P) `.pth` in the reference's layout, with
+    DataParallel's `module.` prefix, beside configs/config_mvsformer-p.json's
+    arch (ndepths 8/4/4/2): `python -m mvsformer_torch.test` loads it
+    strictly and saves view 0's depth and confidence of the JAX DINOMVSNet
+    that loads the same file with its own `load_reference_checkpoint`,
+    within the model test's bounds."""
+    from mvsformer_tpu.config import load_config as jax_load_config
+    from mvsformer_torch.config import load_config, save_config
+    from mvsformer_torch.models.mvsformer import random_init_
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "configs", "config_mvsformer-p.json"))
+    cfg.arch.ndepths = list(CFG["ndepths"])
+    model = random_init_(build_model(cfg.arch, device="cpu"), torch.Generator().manual_seed(3))
+    run = str(tmp_path / "run")
+    os.makedirs(run)
+    path = os.path.join(run, "dino.pth")
+    torch.save({"state_dict": {f"module.{k}": v for k, v in model.state_dict().items()}}, path)
+    save_config(cfg, os.path.join(run, "config.json"))
+    listfile, out = str(tmp_path / "list.txt"), str(tmp_path / "out")
+    with open(listfile, "w") as f:
+        f.write("scan1\n")
+    port_cli.main(["--testpath", tree["data"], "--testlist", listfile, "--ckpt_dir", run,
+                   "--torch_ckpt", path, "--outdir", out, "--max_h", str(SIZE), "--max_w",
+                   str(SIZE), "--ndepths", str(NDEPTHS), "--num_view", str(NUM_VIEW),
+                   "--device", "cpu", "--skip_fusion"])
+
+    jcfg = jax_load_config(os.path.join(run, "config.json")).arch
+    assert jcfg.model_type == "dino"
+    jcfg.fused_enc_head = jcfg.fused_fpn_final = jcfg.fused_fpn_l2 = False
+    params, stats = jax_load_ckpt(path, ndepths=tuple(CFG["ndepths"]), model_th=8)
+    batch = collate([port_eval.MVSEvalDataset(tree["data"], ["scan1"], nviews=NUM_VIEW,
+                                              ndepths=NDEPTHS, interval_scale=1.06,
+                                              max_h=SIZE, max_w=SIZE)[0]])
+    jmodel = jax_build_model(jcfg, dtype=jnp.float32)
+    jout = jax.jit(lambda v, i, p, d: jmodel.apply(v, i, p, d, training=False, tmp=TMPS))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(batch["imgs"]),
+        {k: jnp.asarray(batch["proj_matrices"][k]) for k in ("stage1", "stage2", "stage3",
+                                                             "stage4")},
+        jnp.asarray(batch["depth_values"]))
+    depth = read_pfm(os.path.join(out, "scan1", "depth_est", "00000000.pfm"))[0]
+    conf = np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
+    np.testing.assert_allclose(depth, np.asarray(jout["refined_depth"][0]), rtol=0,
+                               atol=DEPTH_ATOL)
+    np.testing.assert_allclose(conf, np.asarray(jout["photometric_confidence"][0]), rtol=0,
+                               atol=CONF_ATOL)
 
 
 def test_save_depth_refuses_a_mesh_and_a_model_elsewhere(tree, saved, tmp_path):

@@ -131,8 +131,9 @@ def dtu_root(tmp_path_factory):
     return root
 
 
-def toy_config(root, save_dir, name="toy"):
-    cfg = Config()
+def toy_config(root, save_dir, name="toy", cfg=None):
+    """`cfg` (the default Config unless given) at the toy size."""
+    cfg = cfg or Config()
     cfg.name = name
     cfg.arch.ndepths = [8, 4, 4, 2]
     cfg.data.datapath = root
@@ -285,11 +286,39 @@ def test_train_cli_refuses_what_is_not_ported(argv, match):
         train_cli.main(["--config", "unused.json", "--device", "cpu"] + argv)
 
 
-def test_train_cli_refuses_a_dino_config():
+def test_train_cli_trains_the_p_config_with_a_frozen_vit(dtu_root, tmp_path):
+    """`python -m mvsformer_torch.train --config configs/config_mvsformer-p.json
+    --device cpu` (DINOMVSNet, `fix` on), shrunk as the Twins toy config,
+    with `--vit_path` a DINO ViT checkpoint: one short epoch. The merge is
+    reported, and the checkpoint holds the merged ViT unchanged and no ViT
+    tensor in the optimizer."""
+    from test_convert import synth_dino_sd
+
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    with pytest.raises(NotImplementedError, match="model_type"):
-        train_cli.main(["--config", os.path.join(repo, "configs", "config_mvsformer-p.json"),
-                        "--device", "cpu"])
+    save_dir = str(tmp_path / "saved")
+    cfg = toy_config(dtu_root, save_dir, name="toy_p",
+                     cfg=load_config(os.path.join(repo, "configs", "config_mvsformer-p.json")))
+    assert cfg.arch.model_type == "dino" and cfg.arch.fix
+    config, vit_path = str(tmp_path / "config.json"), str(tmp_path / "dino_vits16.pth")
+    save_config(cfg, config)
+    vit = {k: torch.from_numpy(v) for k, v in synth_dino_sd(np.random.default_rng(0)).items()}
+    torch.save(vit, vit_path)
+    try:
+        history = train_cli.main(["--config", config, "--device", "cpu", "--vit_path", vit_path])
+        assert len(history) == 1 and np.isfinite(history[0]["loss"])
+        run_dir = os.path.join(save_dir, "models", "toy_p")
+        with open(os.path.join(run_dir, "info.log")) as f:
+            log = f.read()
+        assert f"[pretrained] {vit_path} -> vit: loaded {len(vit)}/{len(vit)} tensors; " \
+            "missing 0, unexpected 0, shape-mismatch 0" in log
+        saved = torch.load(os.path.join(run_dir, "model_last.pth"), weights_only=False)
+        assert saved["arch"] == "DINOMVSNet"
+        for k, v in vit.items():
+            assert torch.equal(saved["state_dict"][f"vit.{k}"], v), k
+        names = [n for g in saved["optimizer"]["param_groups"] for n in g["names"]]
+        assert names and not [n for n in names if n.startswith("vit.")]
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
 
 
 def test_the_default_device_is_cuda(monkeypatch, tmp_path):
