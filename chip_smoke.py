@@ -141,7 +141,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    shape (phase 10's bounds; the frozen tensors unmoved on both). Each
    kernel's entry of the kernels line adds this phase's checks and one
    request's and one step's launches.
-14. Print one JSON line of per-kernel numbers, then, last, the result line
+14. The cascade's variants (the default ModelConfig with these fields
+   set; seeded weights): serve the DTU request (one warm-up, one timed
+   request, counts set to 0 before it) with cnn / re / GN (K1 4 launches,
+   K6 9, no K2-K5: GN runs the encoder head, the FPN levels and the
+   visibility CNN as their modules), epipole / was / BN (K1 4, K3 4, K4 1,
+   K5 3, K6 9, no K2: the epipole fusions have no visibility CNN) and
+   epipoleV2 / mixup_ce / BN (as epipole, without K3: mixup_ce decodes in
+   torch); print each request's ms, peak memory and ms per layer, and
+   check the outputs as phase 5 does; hold K1 and K3 to their plain
+   versions at every launch of one epipole request (phase 6's tolerances);
+   serve the epipole model again with `eval_view_chunk=2` (the backbone
+   over 2 + 2 + 1 views: K4 3, K5 9, K6 27), hold K4, K5 and K6 to their
+   plain versions at every launch of one chunked request (phase 6's
+   tolerances; these are their only batches of 2 and 1 full-size views),
+   and hold it to the whole request within the card-to-CPU bounds,
+   printing both peaks. Train one
+   warm-up and one timed step at phase 8's shape for re + GN +
+   `mask_out_range`, was (the Sinkhorn loss) and mixup_ce: K7/K8 4
+   launches a micro-batch, K1-K6 none, the loss and every trainable
+   gradient finite and non-zero. Then one fp32 step of cnn / re / GN on
+   the card against the CPU at phase 10's shape (phase 10's bounds).
+15. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
    the CLI runs' output to chiprun_out/training_run_*.log and
    chiprun_out/dino_test.log.
@@ -427,12 +448,13 @@ def layer_breakdown(torch, model, fn, request):
     """Device time per layer in one request, from CUDA events recorded by
     forward hooks around the model's top-level layers and each stage's
     visibility CNN (K2) and cost regulariser; a stage's remainder is K1, the
-    weighted view sum and K3."""
+    weighted view sum, the view weights outside cnn fusion and the decode."""
     nst = len(model.fusions)
+    modules = dict(model.named_modules())
     names = ["encoder", "vit", "decoder_vit", "decoder"]
     for i in range(nst):
-        names += [f"fusions.{i}", f"fusions.{i}.vis", f"fusions.{i}.cost_reg"]
-    modules = dict(model.named_modules())
+        names += [n for n in (f"fusions.{i}", f"fusions.{i}.vis", f"fusions.{i}.cost_reg")
+                  if n in modules]
     spans, hooks = {}, []
 
     def event():
@@ -460,9 +482,11 @@ def layer_breakdown(torch, model, fn, request):
     ms = {n: sum(a.elapsed_time(b) for a, b in spans[n]) for n in names}
     out = {n: ms[n] for n in ("encoder", "vit", "decoder_vit", "decoder")}
     for i in range(nst):
-        out[f"stage{i + 1}.vis(K2)"] = ms[f"fusions.{i}.vis"]
+        vis = ms.get(f"fusions.{i}.vis", 0.0)
+        if f"fusions.{i}.vis" in ms:  # cnn fusion only; K2 under BN, its modules otherwise
+            out[f"stage{i + 1}.vis" + ("(K2)" if model.fusions[i].vis.kernel else "")] = vis
         out[f"stage{i + 1}.cost_reg"] = ms[f"fusions.{i}.cost_reg"]
-        out[f"stage{i + 1}.warp+sum+decode"] = (ms[f"fusions.{i}"] - ms[f"fusions.{i}.vis"]
+        out[f"stage{i + 1}.warp+sum+decode"] = (ms[f"fusions.{i}"] - vis
                                                 - ms[f"fusions.{i}.cost_reg"])
     total = start.elapsed_time(end)
     out["other (resizes, hypotheses, confidence)"] = total - sum(
@@ -516,21 +540,28 @@ def small_request_errors(torch, model, make_infer_fn):
     return errs
 
 
+def check_confidence(torch, depth, conf):
+    """A request's outputs have its shape, finite values and confidence in
+    (0, 1]; raises on a failure, returns the confidence's range."""
+    if tuple(depth.shape) != (B, H, W) or tuple(conf.shape) != (B, H, W):
+        raise RuntimeError(f"output shapes {tuple(depth.shape)}, {tuple(conf.shape)}")
+    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
+        raise RuntimeError("non-finite depth or confidence")
+    cmin, cmax = float(conf.min()), float(conf.max())
+    if cmin <= 0.0 or cmax > 1.0:
+        raise RuntimeError(f"confidence range [{cmin}, {cmax}] outside (0, 1]")
+    return cmin, cmax
+
+
 def check_outputs(torch, depth, conf, decode_calls, decode):
     """Phase 5's checks of one DTU request's outputs: shapes, finite values,
     depth within [DEPTH_MIN, DEPTH_MAX] and each stage's depth (`decode`
     run again on its recorded inputs) within its hypotheses, confidence in
     (0, 1]. Raises on a failure; returns the line to print."""
-    if tuple(depth.shape) != (B, H, W) or tuple(conf.shape) != (B, H, W):
-        raise RuntimeError(f"output shapes {tuple(depth.shape)}, {tuple(conf.shape)}")
-    if not (torch.isfinite(depth).all() and torch.isfinite(conf).all()):
-        raise RuntimeError("non-finite depth or confidence")
+    cmin, cmax = check_confidence(torch, depth, conf)
     dmin, dmax = float(depth.min()), float(depth.max())
     if dmin < DEPTH_MIN or dmax > DEPTH_MAX:
         raise RuntimeError(f"depth range [{dmin}, {dmax}] outside [{DEPTH_MIN}, {DEPTH_MAX}]")
-    cmin, cmax = float(conf.min()), float(conf.max())
-    if cmin <= 0.0 or cmax > 1.0:
-        raise RuntimeError(f"confidence range [{cmin}, {cmax}] outside (0, 1]")
     for s, (args, _) in enumerate(decode_calls):
         dv_s = args[1]
         with torch.inference_mode():
@@ -2258,6 +2289,237 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
         "metrics": metrics, "card_vs_cpu_step": step_errs}}
 
 
+# The cascade's variants (phase 14): the depth, norm and fusion types the
+# JAX package supports beside the default's, served at the DTU request and
+# trained at phase 8's shape. Each config is the default ModelConfig with
+# these fields set.
+VARIANT_EVALS = {
+    "cnn/re/GN": dict(depth_type="re", norm_type="GN"),
+    "epipole/was/BN": dict(fusion_type="epipole", depth_type="was"),
+    "epipoleV2/mixup_ce/BN": dict(fusion_type="epipoleV2", depth_type="mixup_ce"),
+}
+# Launches a request: K1 every stage; K2 under cnn fusion with BN only (GN,
+# IN and the epipole fusions have no kernel visibility CNN); K3 for ce and
+# was only; K4 and K5 under BN only; K6 at every GSA block.
+VARIANT_LAUNCHES = {
+    "cnn/re/GN": {"warp_group_corr": 4, "visibility_net": 0, "depth_decode": 0,
+                  "encoder_head": 0, "fpn_level": 0, "gsa_attention": 9},
+    "epipole/was/BN": {"warp_group_corr": 4, "visibility_net": 0, "depth_decode": 4,
+                       "encoder_head": 1, "fpn_level": 3, "gsa_attention": 9},
+    "epipoleV2/mixup_ce/BN": {"warp_group_corr": 4, "visibility_net": 0, "depth_decode": 0,
+                              "encoder_head": 1, "fpn_level": 3, "gsa_attention": 9},
+}
+VIEW_CHUNK = 2  # (b) again with eval_view_chunk: the backbone over views 2 + 2 + 1
+VARIANT_STEPS = {
+    "re/GN/mask_out_range": dict(depth_type="re", norm_type="GN", mask_out_range=True),
+    "was": dict(depth_type="was"),
+    "mixup_ce": dict(depth_type="mixup_ce"),
+}
+
+
+def check_variant_outputs(torch, model, depth, conf):
+    """Phase 5's checks for a variant, whose decode (re, mixup_ce) may leave
+    the request's depth range where its stage's hypotheses do: finite
+    outputs of the request's shape, confidence in (0, 1], and each stage's
+    depth, from one more forward, within that stage's hypotheses. Raises on
+    a failure; returns the line to print."""
+    cmin, cmax = check_confidence(torch, depth, conf)
+    with torch.inference_mode():
+        out = model(*synthetic_request(torch, B, V, H, W, device=depth.device),
+                    tmp=[5.0, 5.0, 5.0, 1.0])
+    for i in range(len(model.fusions)):
+        st = out[f"stage{i + 1}"]
+        lo, hi = float(st["depth_values"].min()), float(st["depth_values"].max())
+        if float(st["depth"].min()) < lo - 1e-3 or float(st["depth"].max()) > hi + 1e-3:
+            raise RuntimeError(f"stage {i + 1}: depth outside its hypotheses [{lo}, {hi}]")
+    return (f"outputs ok: depth [{float(depth.min()):.3f}, {float(depth.max()):.3f}] within "
+            f"the last stage's hypotheses, conf [{cmin:.6f}, {cmax:.6f}]")
+
+
+def variants_phase(torch, card, eval_specs, device="cuda"):
+    """Phase 14. `eval_specs`: phase 4's K1-K6 specs. Returns {"rows": K1's
+    and K3's checked launches in the epipole request and K4's, K5's and K6's
+    in the chunked one, "launches": one request's of each config and one
+    step's of each, "details"}."""
+    import copy
+    import math
+
+    from mvsformer_torch.config import Config, ModelConfig
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.step import TrainStep
+
+    t_phase = time.perf_counter()
+    request = synthetic_request(torch, B, V, H, W, device=device)
+    details, total, rows = {}, {}, {}
+
+    def serve(model, name, want):
+        """One warm-up and one timed request, the counts set to 0 just
+        before it and read just after; the outputs checked."""
+        fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+        fn(*request)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, _ = fn(*request)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: dict(cuda_build.LAUNCHES).get(n, 0) for n in eval_specs}
+        if counts != want:
+            raise RuntimeError(f"variant {name}: launches {counts} in a request, want {want}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        line = check_variant_outputs(torch, model, depth, conf)
+        print(f"variant {name}: request {ms:.2f} ms, {B / ms * 1e3:.4f} depth-maps/s, peak "
+              f"memory {peak_gb:.3f} GB; launches {counts}; {line} [{card}]", flush=True)
+        return fn, depth, conf, {"request_ms": ms, "peak_memory_gb": peak_gb, "launches": counts}
+
+    # 14a. Each eval config at the DTU request; 14b. K1 and K3 against their
+    # plain versions at every launch of one request of the epipole model.
+    chunk_ref = None
+    for name, kw in VARIANT_EVALS.items():
+        model = build_model(ModelConfig(**kw), device=device)
+        random_init_(model, torch.Generator().manual_seed(0))
+        fn, depth, conf, det = serve(model, name, VARIANT_LAUNCHES[name])
+        det["layers_ms"] = layer_breakdown(torch, model, fn, request)
+        print(f"variant {name} layers (device ms, one request): " + json.dumps(
+            {k: round(v, 3) for k, v in det["layers_ms"].items()}))
+        for n, c in det["launches"].items():
+            total[n] = total.get(n, 0) + c
+        if name == "epipole/was/BN":
+            specs = {n: eval_specs[n] for n in ("warp_group_corr", "depth_decode")}
+            recorded, _ = record_calls(torch, specs, fn, *request)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            for n, calls in recorded.items():
+                if len(calls) != VARIANT_LAUNCHES[name][n]:
+                    raise RuntimeError(f"variant {name} {n}: recorded {len(calls)} calls")
+                rows[n] = [check_kernel(torch, card, n, specs[n],
+                                        f"{name} " + call_label(n, i, args), args, kwargs)
+                           for i, (args, kwargs) in enumerate(calls)]
+            del recorded
+            chunk_ref = (model.state_dict(), depth, conf, det["peak_memory_gb"])
+        details[name] = det
+        del model, fn, depth, conf
+        torch.cuda.empty_cache()
+
+    # 14c. The epipole model again over view chunks: its kernels against
+    # their plain versions, and the request against the whole one.
+    state, ref_depth, ref_conf, ref_peak = chunk_ref
+    model = build_model(ModelConfig(**VARIANT_EVALS["epipole/was/BN"],
+                                    eval_view_chunk=VIEW_CHUNK), device=device)
+    model.load_state_dict(state)
+    n_chunks = -(-V // VIEW_CHUNK)
+    want = {n: c * (n_chunks if n in ("encoder_head", "fpn_level", "gsa_attention") else 1)
+            for n, c in VARIANT_LAUNCHES["epipole/was/BN"].items()}
+    fn, depth, conf, det = serve(model, f"epipole/was/BN eval_view_chunk={VIEW_CHUNK}", want)
+    # K4, K5 and K6 against their plain versions at every launch of one
+    # chunked request: they see batches of VIEW_CHUNK and of the last
+    # chunk's views here, and of all V views everywhere else.
+    specs = {n: eval_specs[n] for n in ("encoder_head", "fpn_level", "gsa_attention")}
+    recorded, _ = record_calls(torch, specs, fn, *request)
+    for n, calls in recorded.items():
+        if len(calls) != want[n]:
+            raise RuntimeError(f"variant view chunks {n}: recorded {len(calls)} calls, "
+                               f"want {want[n]}")
+        per_chunk = want[n] // n_chunks
+        rows[n] = [check_kernel(torch, card, n, specs[n],
+                                f"view chunk {i // per_chunk + 1} B={args[0].shape[0]} "
+                                + call_label(n, i % per_chunk, args), args, kwargs)
+                   for i, (args, kwargs) in enumerate(calls)]
+    del recorded, fn
+    gap_d, gap_c = max_err(depth, ref_depth), max_err(conf, ref_conf)
+    ok = gap_d <= E2E_DEPTH_ATOL and gap_c <= E2E_CONF_ATOL
+    print(f"variant epipole/was/BN over view chunks of {VIEW_CHUNK} against the whole request: "
+          f"depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance {E2E_DEPTH_ATOL:g}, "
+          f"{E2E_CONF_ATOL:g}); peak memory {det['peak_memory_gb']:.3f} GB chunked, "
+          f"{ref_peak:.3f} GB whole [{card}] " + ("ok" if ok else "FAILED"), flush=True)
+    if not ok:
+        raise RuntimeError("the request over view chunks disagrees with the whole request")
+    details["view_chunks"] = dict(det, depth_gap=gap_d, conf_gap=gap_c)
+    del model, state, chunk_ref, ref_depth, ref_conf, depth, conf
+    torch.cuda.empty_cache()
+
+    # 14d. A training step of each config at phase 8's shape.
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    n_micro = TRAIN_B // TRAIN_MICRO
+    per_step = {n: (4 * n_micro if n in TRAIN_PER_MICRO else 0)
+                for n in list(eval_specs) + list(TRAIN_PER_MICRO)}
+    for name, kw in VARIANT_STEPS.items():
+        cfg = Config()
+        for k, v in kw.items():
+            setattr(cfg.arch, k, v)
+        model = build_model(cfg.arch, device=device, train=True)
+        random_init_(model, torch.Generator().manual_seed(1))
+        step = TrainStep(model, cfg, seed=0)
+        step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(cuda_build.LAUNCHES)
+        if {n: counts.get(n, 0) for n in per_step} != per_step or set(counts) - set(per_step):
+            raise RuntimeError(f"variant step {name}: launches {counts}, want {per_step}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bad = [n for n, g in grads_of(model).items()
+               if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+        losses = [v for k, v in metrics.items() if k.startswith("loss")]
+        if bad or not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"variant step {name}: loss {metrics['loss']}, bad gradients "
+                               f"{bad[:8]}")
+        print(f"variant step {name} ({TRAIN_B} as {n_micro} micro-batches of {TRAIN_MICRO}, "
+              f"{TRAIN_V} views, {TRAIN_H}x{TRAIN_W}, {NDEPTH_FULL} depths): {ms:.2f} ms, "
+              f"peak memory {peak_gb:.2f} GB; launches {counts}; loss {metrics['loss']:.5f}; "
+              f"all {len(grads_of(model))} trainable gradients finite and non-zero [{card}]",
+              flush=True)
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        details[f"step {name}"] = {"step_ms": ms, "peak_memory_gb": peak_gb,
+                                   "launches": counts, "metrics": metrics}
+        del model, step
+        torch.cuda.empty_cache()
+    del batch
+
+    # 14e. One fp32 step of (a)'s config on the card against the CPU at
+    # phase 10's shape.
+    sb, sv, sh, sw = STEP_SHAPE
+    small = Config()
+    for k, v in VARIANT_EVALS["cnn/re/GN"].items():
+        setattr(small.arch, k, v)
+    small.arch.vit_args.drop_path_rate = 0.0
+    small.optimizer.warmup_steps = 0
+    small.data.multi_scale_args.scale_batch_map = {str(sh): 1}
+    cpu_model = build_model(small.arch, device="cpu", train=True)
+    random_init_(cpu_model, torch.Generator().manual_seed(2))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    t0 = time.perf_counter()
+    card_metrics = TrainStep(card_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device=device, with_gt=True))
+    cpu_metrics = TrainStep(cpu_model, small, seed=0)(
+        synthetic_batch(torch, sb, sv, sh, sw, device="cpu", with_gt=True))
+    ok, step_errs, lines = compare_steps(torch, card_model, cpu_model, before, card_metrics,
+                                         cpu_metrics, small.optimizer)
+    print(f"variant cnn/re/GN training step {STEP_SHAPE} on the card against the CPU "
+          f"({time.perf_counter() - t0:.1f} s): loss {card_metrics['loss']:.6f} / "
+          f"{cpu_metrics['loss']:.6f}; worst errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in step_errs.items())
+          + " (phase 10's bounds) " + ("ok" if ok else "FAILED"), flush=True)
+    for line in lines[-20:]:
+        print(f"  {line}")
+    if not ok:
+        raise RuntimeError("the GN training step on the card disagrees with the CPU step")
+    details["card_vs_cpu_step"] = step_errs
+    details["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 (the variants): {details['phase_s']:.1f} s", flush=True)
+    return {"rows": rows, "launches": total, "details": details}
+
+
 def main() -> int:
     import torch
 
@@ -2470,11 +2732,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     dino = dino_phase(torch, card, specs)
 
+    # 14. The cascade's variants served and trained.
+    torch.cuda.empty_cache()
+    variants = variants_phase(torch, card, specs)
+
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino):
+    for phase in (run, dino, variants):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -2498,6 +2764,8 @@ def main() -> int:
         "pipeline": pipeline,
         "training_run": dict(run["details"], rows=run["rows"], launches=run["launches"]),
         "dino": dict(dino["details"], rows=dino["rows"], launches=dino["launches"]),
+        "variants": dict(variants["details"], rows=variants["rows"],
+                         launches=variants["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -44,17 +44,19 @@ class ModelConfig:
     model_type: str = "twin"  # "twin" (MVSFormer) | "dino" (MVSFormer-P)
     fix: bool = False  # freeze the backbone in training
     depth_type: str = "ce"  # ce | re | was | mixup_ce
+    mask_out_range: bool = False  # re loss: drop pixels whose depth is outside the hypotheses
     focal: bool = False  # focal cross-entropy in the ce loss
     gamma: float = 2.0  # its focusing exponent
     fusion_type: str = "cnn"  # cnn | epipole | epipoleV2
     inverse_depth: bool = True
+    attn_temp: float = 2.0  # epipole fusion's fixed softmax temperature
     base_ch: int = 8  # correlation groups G
     model_th: int = 8  # ndepth threshold selecting CostRegNet3D vs CostRegNet
     ndepths: Any = field(default_factory=lambda: [32, 16, 8, 4])
     feat_chs: Any = field(default_factory=lambda: [8, 16, 32, 64])
     depth_interals_ratio: Any = field(default_factory=lambda: [4.0, 2.67, 1.5, 1.0])
     multi_scale: bool = False
-    norm_type: str = "BN"  # BN | GN
+    norm_type: str = "BN"  # BN | GN | IN | none
     clamp_eth3d: bool = False  # ETH3D clamped inverse-depth schedulers
     eval_view_chunk: int = 0  # >0: eval backbone runs views in chunks
     vit_args: ViTConfig = field(default_factory=ViTConfig)

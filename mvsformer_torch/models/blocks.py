@@ -2,9 +2,10 @@
 
 Port of `mvsformer_tpu/models/blocks.py`. Convolutions use torch-convention
 padding p = (k - 1) // 2; transposed convolutions use the reference's
-padding and output_padding, so the outputs are exact 2x upsamples. Module
-attribute names are the reference checkpoint's (`conv`/`bn`, or the
-`Sequential` indices), which is what the weight bridge maps.
+padding and output_padding, so the outputs are exact 2x upsamples. Every
+block takes the model's `norm_type` (`make_norm`). Module attribute names
+are the reference checkpoint's (`conv`/`bn`, or the `Sequential` indices)
+whatever the norm, which is what the weight bridge maps.
 """
 
 from __future__ import annotations
@@ -71,37 +72,72 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
-class ConvNormAct(nn.Module):
-    """2D conv (no bias) + BN + leaky-ReLU(0.1)."""
+def group_count(kind: str, channels: int) -> int:
+    """GroupNorm's groups: `IN` one per channel; `GN` min(8, C), lowered
+    until it divides C."""
+    if kind == "IN":
+        return channels
+    groups = min(8, channels)
+    while channels % groups:
+        groups -= 1
+    return groups
 
-    def __init__(self, cin, cout, kernel=3, stride=1):
+
+NORMS = ("BN", "GN", "IN", "none")
+
+
+def make_norm(kind: str, channels: int) -> nn.Module:
+    """The normalisation after a conv, as the JAX package's `Norm` picks it:
+    `BN` batch norm (folded in eval), `GN` group norm, `IN` instance norm
+    (group norm with one group per channel; affine and without running
+    statistics, as flax's), `none` nothing. The group norms take flax's
+    eps of 1e-6."""
+    if kind == "BN":
+        return FoldedBatchNorm(channels)
+    if kind in ("GN", "IN"):
+        return nn.GroupNorm(group_count(kind, channels), channels, eps=1e-6)
+    if kind == "none":
+        return nn.Identity()
+    raise ValueError(f"unknown norm_type {kind!r}; one of {NORMS}")
+
+
+def _pad(kernel):
+    return tuple((k - 1) // 2 for k in kernel) if isinstance(kernel, tuple) else (kernel - 1) // 2
+
+
+class ConvNormAct(nn.Module):
+    """2D conv + norm + leaky-ReLU(0.1); the conv has a bias only without a
+    norm."""
+
+    def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
-        self.bn = FoldedBatchNorm(cout)
+        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=norm == "none")
+        self.bn = make_norm(norm, cout)
 
     def forward(self, x):
         return F.leaky_relu(self.bn(self.conv(x)), 0.1)
 
 
 class ConvBnReLU(nn.Module):
-    """2D conv (no bias) + BN + ReLU; the visibility CNN's layer."""
+    """2D conv (no bias) + norm + ReLU; the visibility CNN's layer."""
 
-    def __init__(self, cin, cout, kernel=3, stride=1):
+    def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
-        self.bn = FoldedBatchNorm(cout)
+        self.bn = make_norm(norm, cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
 
 
 class Conv3dNormAct(nn.Module):
-    """3D conv (no bias) + BN + ReLU."""
+    """3D conv + norm + ReLU; the conv has a bias only without a norm.
+    `kernel` an int or a (kd, kh, kw) tuple, padded (k - 1) // 2 per axis."""
 
-    def __init__(self, cin, cout, kernel=3, stride=1):
+    def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
-        self.conv = nn.Conv3d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
-        self.bn = FoldedBatchNorm(cout)
+        self.conv = nn.Conv3d(cin, cout, kernel, stride, _pad(kernel), bias=norm == "none")
+        self.bn = make_norm(norm, cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -114,13 +150,13 @@ def _deconv3d(cin, cout, stride):
 
 
 class Deconv3dNormAct(nn.Module):
-    """Transposed 3D conv (k3, p1, output_padding s-1) + BN + ReLU: exact 2x
-    on the strided axes. Reference keys `conv`/`bn`."""
+    """Transposed 3D conv (k3, p1, output_padding s-1) + norm + ReLU: exact
+    2x on the strided axes. Reference keys `conv`/`bn`."""
 
-    def __init__(self, cin, cout, stride=2):
+    def __init__(self, cin, cout, stride=2, norm="BN"):
         super().__init__()
         self.conv = _deconv3d(cin, cout, stride)
-        self.bn = FoldedBatchNorm(cout)
+        self.bn = make_norm(norm, cout)
 
     def forward(self, x):
         return F.relu(self.bn(self.conv(x)))
@@ -130,21 +166,34 @@ class Deconv3dSeq(nn.Sequential):
     """The same block as a `Sequential` (reference keys `0`/`1`), as
     CostRegNet3D names it."""
 
-    def __init__(self, cin, cout, stride=(1, 2, 2)):
-        super().__init__(_deconv3d(cin, cout, stride), FoldedBatchNorm(cout), nn.ReLU())
+    def __init__(self, cin, cout, stride=(1, 2, 2), norm="BN"):
+        super().__init__(_deconv3d(cin, cout, stride), make_norm(norm, cout), nn.ReLU())
+
+
+class Deconv2dIn3dSeq(nn.Sequential):
+    """Transposed 3D conv with a (1, 3, 3) kernel, stride (1, 2, 2), padding
+    (0, 1, 1) and output padding (0, 1, 1) (an exact 2x in H and W, each
+    depth plane on its own) + norm + ReLU, as CostRegNet2D names it (keys
+    `0`/`1`)."""
+
+    def __init__(self, cin, cout, norm="BN"):
+        super().__init__(nn.ConvTranspose3d(cin, cout, (1, 3, 3), (1, 2, 2), padding=(0, 1, 1),
+                                            output_padding=(0, 1, 1), bias=False),
+                         make_norm(norm, cout), nn.ReLU())
 
 
 class Deconv2dNormAct(nn.Sequential):
-    """Transposed 2D conv (k4, s2, p1: exact 2x) + BN + activation."""
+    """Transposed 2D conv (k4, s2, p1: exact 2x) + norm + activation."""
 
-    def __init__(self, cin, cout, act: nn.Module):
+    def __init__(self, cin, cout, act: nn.Module, norm="BN"):
         super().__init__(nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=False),
-                         FoldedBatchNorm(cout), act)
+                         make_norm(norm, cout), act)
 
 
 class ConvNormSeq(nn.Sequential):
-    """Conv (with bias, 'same' padding) + BN + activation as a `Sequential`."""
+    """Conv (with bias, 'same' padding) + norm + activation as a
+    `Sequential`."""
 
-    def __init__(self, cin, cout, kernel, act: nn.Module):
+    def __init__(self, cin, cout, kernel, act: nn.Module, norm="BN"):
         super().__init__(nn.Conv2d(cin, cout, kernel, 1, (kernel - 1) // 2),
-                         FoldedBatchNorm(cout), act)
+                         make_norm(norm, cout), act)

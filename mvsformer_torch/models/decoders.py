@@ -22,16 +22,16 @@ def _up2(x):
 
 
 class TwinDecoderStage4(nn.Module):
-    def __init__(self, vit_chs=(64, 128, 256, 512), out_ch=64):
+    def __init__(self, vit_chs=(64, 128, 256, 512), out_ch=64, norm="BN"):
         super().__init__()
         ch = out_ch * 4
-        self.upsampler0 = Deconv2dNormAct(vit_chs[3], ch, gelu_tanh())
+        self.upsampler0 = Deconv2dNormAct(vit_chs[3], ch, gelu_tanh(), norm=norm)
         self.inner1 = nn.Conv2d(vit_chs[2], ch, 1)
-        self.smooth1 = ConvNormSeq(ch, ch // 2, 3, nn.ReLU())
+        self.smooth1 = ConvNormSeq(ch, ch // 2, 3, nn.ReLU(), norm=norm)
         self.inner2 = nn.Conv2d(vit_chs[1], ch // 2, 1)
-        self.smooth2 = ConvNormSeq(ch // 2, ch // 4, 3, nn.ReLU())
+        self.smooth2 = ConvNormSeq(ch // 2, ch // 4, 3, nn.ReLU(), norm=norm)
         self.inner3 = nn.Conv2d(vit_chs[0], ch // 4, 1)
-        self.smooth3 = ConvNormSeq(ch // 4, ch // 4, 3, Swish())
+        self.smooth3 = ConvNormSeq(ch // 4, ch // 4, 3, Swish(), norm=norm)
 
     def forward(self, x1, x2, x3, x4):
         x = self.upsampler0(x4) + self.inner1(x3)
@@ -47,10 +47,10 @@ class AttentionFusionSimple(nn.Module):
     conv_r(x * mean_heads(att))), each conv a 3x3 conv + BN + swish.
     x [N, embed_dim, h, w], att [N, heads, h, w]."""
 
-    def __init__(self, embed_dim, heads, vit_ch, out_ch):
+    def __init__(self, embed_dim, heads, vit_ch, out_ch, norm="BN"):
         super().__init__()
-        self.conv_l = ConvNormSeq(embed_dim + heads, vit_ch, 3, Swish())
-        self.conv_r = ConvNormSeq(embed_dim, vit_ch, 3, Swish())
+        self.conv_l = ConvNormSeq(embed_dim + heads, vit_ch, 3, Swish(), norm=norm)
+        self.conv_r = ConvNormSeq(embed_dim, vit_ch, 3, Swish(), norm=norm)
         self.proj = nn.Conv2d(vit_ch, out_ch, 1)
 
     def forward(self, x, att):
@@ -64,11 +64,12 @@ class VITDecoderStage4Single(nn.Module):
     `out_ch` channels at 4x the token grid. The two transposed convs sit in
     one `Sequential` (reference keys `decoder.0/1` and `decoder.3/4`)."""
 
-    def __init__(self, embed_dim, heads, vit_ch=384, out_ch=64):
+    def __init__(self, embed_dim, heads, vit_ch=384, out_ch=64, norm="BN"):
         super().__init__()
-        self.attn = AttentionFusionSimple(embed_dim, heads, vit_ch, out_ch * 4)
-        self.decoder = nn.Sequential(*Deconv2dNormAct(out_ch * 4, out_ch * 2, gelu_tanh()),
-                                     *Deconv2dNormAct(out_ch * 2, out_ch, gelu_tanh()))
+        self.attn = AttentionFusionSimple(embed_dim, heads, vit_ch, out_ch * 4, norm)
+        self.decoder = nn.Sequential(
+            *Deconv2dNormAct(out_ch * 4, out_ch * 2, gelu_tanh(), norm=norm),
+            *Deconv2dNormAct(out_ch * 2, out_ch, gelu_tanh(), norm=norm))
 
     def forward(self, x, att):
         return self.decoder(self.attn(x, att))

@@ -145,7 +145,7 @@ class DINOMVSNet(CascadeMVSNet):
         self.vit = build_vit(va.vit_arch, va.patch_size, va.qk_scale)
         vit_ch = va.vit_ch if isinstance(va.vit_ch, int) else 384
         self.decoder_vit = VITDecoderStage4Single(self.vit.embed_dim, self.vit.num_heads,
-                                                  vit_ch, va.out_ch)
+                                                  vit_ch, va.out_ch, cfg.norm_type)
 
     def extract_features(self, imgs, generator=None):
         """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1). The

@@ -9,9 +9,11 @@ full-resolution 64-channel intra' never exists. On the CPU both run their
 plain versions, which are the same convolutions and resizes.
 
 K4 and K5 take folded (running-stat) BN and have no backward, so they run
-in eval only, as the JAX package gates its kernels on `not training`. In
-training the head and the levels run as the modules themselves: convs,
-batch-statistics BN, the align-corners 2x resize and the 1x1 inner convs.
+in eval under `norm_type="BN"` only, as the JAX package gates its kernels
+on `not training and norm == "BN"`. In training, and under GN, IN or no
+norm, the head and the levels run as the modules themselves: convs, the
+norm, the align-corners 2x resize and the 1x1 inner convs. The choice is
+made once, when the module is built, from the norm.
 """
 
 from __future__ import annotations
@@ -25,23 +27,25 @@ from mvsformer_torch.ops.resize import resize_bilinear
 
 
 class FPNEncoder(nn.Module):
-    def __init__(self, feat_chs=(8, 16, 32, 64)):
+    def __init__(self, feat_chs=(8, 16, 32, 64), norm="BN"):
         super().__init__()
         ch = feat_chs
-        self.conv00 = ConvNormAct(3, ch[0], 7)
-        self.conv01 = ConvNormAct(ch[0], ch[0], 5)
-        self.downsample1 = ConvNormAct(ch[0], ch[1], 5, stride=2)
-        self.conv10 = ConvNormAct(ch[1], ch[1])
-        self.conv11 = ConvNormAct(ch[1], ch[1])
-        self.downsample2 = ConvNormAct(ch[1], ch[2], 5, stride=2)
-        self.conv20 = ConvNormAct(ch[2], ch[2])
-        self.conv21 = ConvNormAct(ch[2], ch[2])
-        self.downsample3 = ConvNormAct(ch[2], ch[3], 3, stride=2)
-        self.conv30 = ConvNormAct(ch[3], ch[3])
-        self.conv31 = ConvNormAct(ch[3], ch[3])
+        self.kernel = norm == "BN"  # K4 runs the head in eval
+        kw = dict(norm=norm)
+        self.conv00 = ConvNormAct(3, ch[0], 7, **kw)
+        self.conv01 = ConvNormAct(ch[0], ch[0], 5, **kw)
+        self.downsample1 = ConvNormAct(ch[0], ch[1], 5, stride=2, **kw)
+        self.conv10 = ConvNormAct(ch[1], ch[1], **kw)
+        self.conv11 = ConvNormAct(ch[1], ch[1], **kw)
+        self.downsample2 = ConvNormAct(ch[1], ch[2], 5, stride=2, **kw)
+        self.conv20 = ConvNormAct(ch[2], ch[2], **kw)
+        self.conv21 = ConvNormAct(ch[2], ch[2], **kw)
+        self.downsample3 = ConvNormAct(ch[2], ch[3], 3, stride=2, **kw)
+        self.conv30 = ConvNormAct(ch[3], ch[3], **kw)
+        self.conv31 = ConvNormAct(ch[3], ch[3], **kw)
 
     def forward(self, x):
-        if self.training:
+        if self.training or not self.kernel:
             conv01 = self.conv01(self.conv00(x))
             down0 = self.downsample1(conv01)
         else:
@@ -58,21 +62,22 @@ class FPNEncoder(nn.Module):
 class FPNDecoder(nn.Module):
     """Top-down add decoder -> stage1..stage4 maps at 1/8..1/1 resolution."""
 
-    def __init__(self, feat_chs=(8, 16, 32, 64)):
+    def __init__(self, feat_chs=(8, 16, 32, 64), norm="BN"):
         super().__init__()
         ch = feat_chs
         final = ch[-1]
-        self.out0 = ConvNormSeq(ch[3], ch[3], 1, Swish())
+        self.kernel = norm == "BN"  # K5 runs each level in eval
+        self.out0 = ConvNormSeq(ch[3], ch[3], 1, Swish(), norm=norm)
         self.inner1 = nn.Conv2d(ch[2], final, 1)
-        self.out1 = ConvNormSeq(final, ch[2], 3, Swish())
+        self.out1 = ConvNormSeq(final, ch[2], 3, Swish(), norm=norm)
         self.inner2 = nn.Conv2d(ch[1], final, 1)
-        self.out2 = ConvNormSeq(final, ch[1], 3, Swish())
+        self.out2 = ConvNormSeq(final, ch[1], 3, Swish(), norm=norm)
         self.inner3 = nn.Conv2d(ch[0], final, 1)
-        self.out3 = ConvNormSeq(final, ch[0], 3, Swish())
+        self.out3 = ConvNormSeq(final, ch[0], 3, Swish(), norm=norm)
 
     def _level(self, i, intra, lateral, emit_intra):
         inner, out = getattr(self, f"inner{i}"), getattr(self, f"out{i}")
-        if self.training:
+        if self.training or not self.kernel:
             h, w = intra.shape[-2:]
             intra = resize_bilinear(intra, (2 * h, 2 * w), align_corners=True) + inner(lateral)
             return (out(intra), intra) if emit_intra else out(intra)

@@ -3,13 +3,16 @@ factory of both.
 
 Port of `mvsformer_tpu/models/mvsformer.py`: FPN encoder + Twins backbone
 fused by TwinDecoderStage4, then a 4-stage coarse-to-fine cascade of
-StageNets with inverse-depth (or metric) hypothesis scheduling and a
-stage-averaged confidence (ce; the last stage's for was). `CascadeMVSNet`
-holds that cascade; each model supplies its features
-(`extract_features`), and DINOMVSNet (`models/dino.py`) averages the
-confidences whatever the depth type, as the JAX DINOMVSNet does. Inputs
-keep the JAX layout: images [B, V, H, W, 3], projections {stageK: [B, V,
-2, 4, 4]}, depth_values [B, Dfull]. Inside, maps are NCHW.
+StageNets with inverse-depth (or metric) hypothesis scheduling, the ETH3D
+clamped forms under `clamp_eth3d`, and a stage-averaged confidence (ce and
+mixup_ce; the last stage's for re and was). `CascadeMVSNet` holds that
+cascade; each model supplies its features (`extract_features`), and
+DINOMVSNet (`models/dino.py`) averages the confidences whatever the depth
+type, as the JAX DINOMVSNet does. In eval with `eval_view_chunk` the
+features are extracted over chunks of that many views, as the JAX
+`extract_view_features` does. Inputs keep the JAX layout: images [B, V,
+H, W, 3], projections {stageK: [B, V, 2, 4, 4]}, depth_values [B,
+Dfull]. Inside, maps are NCHW.
 
 The forward follows `self.training`, as the JAX model follows its
 `training` argument: batch-statistics BN, stochastic depth in the backbone
@@ -50,10 +53,11 @@ class CascadeMVSNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         feat_chs = tuple(cfg.feat_chs)
-        self.encoder = FPNEncoder(feat_chs)
-        self.decoder = FPNDecoder(feat_chs)
+        self.encoder = FPNEncoder(feat_chs, cfg.norm_type)
+        self.decoder = FPNDecoder(feat_chs, cfg.norm_type)
         self.fusions = nn.ModuleList(
-            StageNet(nd, cfg.base_ch, cfg.model_th) for nd in cfg.ndepths)
+            StageNet(nd, cfg.base_ch, cfg.model_th, cfg.fusion_type, cfg.depth_type,
+                     cfg.norm_type, cfg.attn_temp) for nd in cfg.ndepths)
 
     def vit_input(self, imgs):
         """The images bicubically rescaled by `vit_args.rescale`, in fp32."""
@@ -73,12 +77,27 @@ class CascadeMVSNet(nn.Module):
         with fp32_math():
             return self._forward(imgs, proj_matrices, depth_values, tmp, generator)
 
+    def view_features(self, imgs, generator=None):
+        """imgs [B, V, H, W, 3] -> per-stage maps [B, V, C, h, w]; in eval
+        with 0 < `eval_view_chunk` < V, over chunks of that many views."""
+        B, V, H, W, _ = imgs.shape
+        chunk = self.cfg.eval_view_chunk
+        if self.training or not 0 < chunk < V:
+            chunk = V
+        per_stage = None
+        for v0 in range(0, V, chunk):
+            cv = min(chunk, V - v0)
+            flat = imgs[:, v0:v0 + cv].reshape(B * cv, H, W, 3).permute(0, 3, 1, 2).contiguous()
+            fs = [f.reshape(B, cv, *f.shape[1:]) for f in self.extract_features(flat, generator)]
+            per_stage = fs if per_stage is None else [
+                torch.cat([a, b], dim=1) for a, b in zip(per_stage, fs)]
+        return per_stage
+
     def _forward(self, imgs, proj_matrices, depth_values, tmp, generator=None):
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
-        flat = imgs.reshape(B * V, H, W, 3).permute(0, 3, 1, 2).contiguous()
-        features = [f.reshape(B, V, *f.shape[1:])
-                    for f in self.extract_features(flat, generator)]
+        features = self.view_features(imgs, generator)
+        clamped = cfg.inverse_depth and cfg.clamp_eth3d
 
         outputs = {}
         prev = None
@@ -93,12 +112,15 @@ class CascadeMVSNet(nn.Module):
             sh, sw = feat.shape[3], feat.shape[4]
             projs = proj_matrices[f"stage{stage_idx + 1}"]
             if stage_idx == 0:
-                init = hypotheses.init_inverse_range if cfg.inverse_depth else hypotheses.init_range
+                init = (hypotheses.init_inverse_range_clamped if clamped
+                        else hypotheses.init_inverse_range if cfg.inverse_depth
+                        else hypotheses.init_range)
                 samples = init(depth_values, ndepth, sh, sw)
             elif cfg.inverse_depth:
                 samples = hypotheses.schedule_inverse_range(
                     prev["depth"].detach(), prev["depth_values"], ndepth,
-                    cfg.depth_interals_ratio[stage_idx], sh, sw)
+                    cfg.depth_interals_ratio[stage_idx], sh, sw,
+                    inv_floor=hypotheses.ETH3D_INV_FLOOR if clamped else None)
             else:
                 samples = hypotheses.schedule_range(
                     prev["depth"].detach(), ndepth,
@@ -123,7 +145,7 @@ class TwinMVSNet(CascadeMVSNet):
         super().__init__(cfg)
         self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
         self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
-                                             cfg.vit_args.out_ch)
+                                             cfg.vit_args.out_ch, cfg.norm_type)
 
     def extract_features(self, imgs, generator=None):
         """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1)."""
@@ -138,28 +160,29 @@ class TwinMVSNet(CascadeMVSNet):
         return self.decoder(conv01, conv11, conv21, conv31)
 
 
+DEPTH_TYPES = ("ce", "re", "was", "mixup_ce")
+
+
 def build_model(cfg: ModelConfig, device=None, train: bool = False) -> CascadeMVSNet:
     """TwinMVSNet (`model_type` "twin") or DINOMVSNet ("dino") on `device`
     (`cuda` unless the caller asks for the CPU; raises if CUDA is asked for
     and absent), in eval mode, or in training mode with `train=True`.
     Raises NotImplementedError for parts of the configuration that later
-    slices port."""
+    slices port, ValueError for values no model has."""
     dev = resolve_device(device)
     va, dino = cfg.vit_args, cfg.model_type == "dino"
     unsupported = {
-        "model_type": cfg.model_type not in ("twin", "dino"),
         "multi_scale (ROADMAP A6)": bool(cfg.multi_scale),
         "att_fusion=false (ROADMAP A6)": dino and not va.att_fusion,
         "cross_att (ROADMAP A6)": dino and bool(va.cross_att),
-        "fusion_type": cfg.fusion_type != "cnn",
-        "depth_type": cfg.depth_type not in ("ce", "was"),
-        "norm_type": cfg.norm_type != "BN",
-        "clamp_eth3d": bool(cfg.clamp_eth3d),
-        "eval_view_chunk": cfg.eval_view_chunk > 0,
     }
     missing = [k for k, bad in unsupported.items() if bad]
     if missing:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if cfg.model_type not in ("twin", "dino"):
+        raise ValueError(f"unknown model_type {cfg.model_type!r}")
+    if cfg.depth_type not in DEPTH_TYPES:
+        raise ValueError(f"unknown depth_type {cfg.depth_type!r}; one of {DEPTH_TYPES}")
     if dino:
         from mvsformer_torch.models.dino import DINOMVSNet
 
@@ -171,9 +194,10 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False) -> CascadeMV
 def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every weight from `generator` (a CPU generator, so the draw does
     not depend on the device): convs and linears ~ N(0, 1/fan_in), biases and
-    norm shifts ~ 0.05 N(0, 1), norm scales ~ 1 + 0.1 N(0, 1), BN running
-    stats non-trivial (mean 0.1 N(0, 1), var 1 + 0.2 |N(0, 1)|), and a ViT's
-    bare parameters (`cls_token`, `pos_embed`) ~ 0.02 N(0, 1)."""
+    norm shifts ~ 0.05 N(0, 1), the scales of layer, group and batch norms
+    ~ 1 + 0.1 N(0, 1), BN running stats non-trivial (mean 0.1 N(0, 1), var
+    1 + 0.2 |N(0, 1)|), and a ViT's bare parameters (`cls_token`,
+    `pos_embed`) ~ 0.02 N(0, 1)."""
     def draw(t, std, mean=0.0, absolute=False):
         x = torch.randn(t.shape, generator=generator)
         x = x.abs() if absolute else x
@@ -190,7 +214,7 @@ def random_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             draw(w, fan_in ** -0.5)
             if mod.bias is not None:
                 draw(mod.bias, 0.05)
-        elif isinstance(mod, (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)):
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, nn.modules.batchnorm._BatchNorm)):
             draw(mod.weight, 0.1, 1.0)
             draw(mod.bias, 0.05)
             if isinstance(mod, nn.modules.batchnorm._BatchNorm):

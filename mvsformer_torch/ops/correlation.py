@@ -1,12 +1,15 @@
 """Group-wise correlation and the depth entropy that feeds the visibility CNN.
 
-Port of `mvsformer_tpu/ops/correlation.py` (cnn fusion only; the epipole
-weights come with a later slice). Layouts follow the JAX functions:
-volumes are [B, D, H, W, G]. All correlation maths is fp32 (fp64 stays
-fp64, for gradient checks).
+Port of `mvsformer_tpu/ops/correlation.py`: the correlation, the entropy
+that feeds the cnn fusion's visibility CNN, and the epipole fusions'
+per-depth view weights. Layouts follow the JAX functions: volumes are
+[B, D, H, W, G] (any strided view). All correlation maths is fp32 (fp64
+stays fp64, for gradient checks).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -32,3 +35,20 @@ def entropy_over_depth(corr):
     p = torch.softmax(sim, dim=1)
     ent = -(p * torch.log(p + 1e-7)).sum(dim=1)
     return ent[..., None]
+
+
+def epipole_weight(corr, attn_temp: float, channels: int):
+    """The epipole fusion's view weight [B, D, H, W]: softmax over depth of
+    sum_g corr / attn_temp, over sqrt(channels)."""
+    score = corr.sum(dim=-1) / attn_temp
+    return torch.softmax(score, dim=1) / math.sqrt(channels)
+
+
+def epipole_v2_weight(corr, attn_temp, invalid, groups: int):
+    """epipoleV2's view weight [B, D, H, W]: the learned temperature
+    `attn_temp` (a scalar tensor) clamped to [0.1, 10], a -1e4 bias on the
+    bins whose projection leaves the source frustum (`invalid` [B, D, H,
+    W] bool), softmax over depth, over sqrt(groups)."""
+    score = corr.sum(dim=-1) / attn_temp.clamp(0.1, 10.0)
+    score = score + (-10000.0) * invalid.to(score.dtype)
+    return torch.softmax(score, dim=1) / math.sqrt(groups)

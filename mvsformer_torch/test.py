@@ -17,7 +17,7 @@ Departures from the JAX CLI:
   reference `.pth`); the JAX package's orbax checkpoint directories are not
   read (ROADMAP A4).
 - `--data_parallel`, `--view_parallel` and `--depth_parallel` above 1 are
-  not ported (ROADMAP A5), nor is `--eval_view_chunk` (ROADMAP A6).
+  not ported (ROADMAP A5).
 - The scans' images must be PNG, PPM or PGM (under their `.jpg` names is
   fine): the port decodes no JPEG (ROADMAP A3), and saves `images/*.jpg`
   as PNG bytes.
@@ -36,8 +36,8 @@ def parse_args(argv=None):
                "--dtype takes fp32 only (no bf16 mode yet, ROADMAP B); weights come from "
                "<ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (orbax restore: ROADMAP A4); "
                "--data_parallel, "
-               "--view_parallel and --depth_parallel above 1 (ROADMAP A5) and "
-               "--eval_view_chunk (ROADMAP A6) are not ported; input images must be PNG, "
+               "--view_parallel and --depth_parallel above 1 (ROADMAP A5) are not ported; "
+               "input images must be PNG, "
                "PPM or PGM (no JPEG decoder: ROADMAP A3), and images/*.jpg is written as PNG.")
     parser.add_argument("--dataset", default="dtu", choices=["dtu", "tt"])
     parser.add_argument("--testpath", required=True)
@@ -93,7 +93,7 @@ def parse_args(argv=None):
     parser.add_argument("--depth_parallel", type=int, default=1,
                         help="above 1: not ported (ROADMAP A5)")
     parser.add_argument("--eval_view_chunk", type=int, default=0,
-                        help="above 0: not ported (ROADMAP A6)")
+                        help="above 0: the backbone runs over chunks of this many views")
     return parser.parse_args(argv)
 
 

@@ -105,7 +105,8 @@ class TrainStep:
                 loss, stage_losses = total_loss(
                     out, micro["depth_gt"], micro["mask"], dv[:, 1] - dv[:, 0],
                     depth_type=arch.depth_type, focal=arch.focal, gamma=arch.gamma,
-                    inverse_depth=arch.inverse_depth, stage_keys=stage_keys)
+                    inverse_depth=arch.inverse_depth, mask_out_range=arch.mask_out_range,
+                    stage_keys=stage_keys)
                 loss.backward()
                 sums["loss"] += float(loss.detach())
                 for k in stage_keys:

@@ -12,8 +12,13 @@ arrays and lays each tensor out for torch:
   [in, out, k...];
 - flax Dense kernel [I, O] -> torch Linear weight [O, I] (qkv keeps its
   [q; k; v] packing);
-- LayerNorm / BN scale -> weight; BN mean / var -> running_mean /
-  running_var.
+- LayerNorm / BN / GroupNorm scale -> weight; BN mean / var ->
+  running_mean / running_var (GN and IN have no running statistics, so a
+  model without BN has no `batch_stats`, and any missing subtree of it
+  reads as empty);
+- StageNet: `vis` only under cnn fusion, `attn_temp` under epipoleV2; the
+  U-Nets of a stage without `vis` (epipole's CostRegNet2D, epipoleV2's
+  CostRegNet3D) have the `Sequential` transposed-conv keys.
 
 Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
 the whole TwinMVSNet, `convert_flax_dino` the whole DINOMVSNet, and
@@ -50,14 +55,26 @@ def _bn(sd, key, p, s):
     sd[f"{key}.num_batches_tracked"] = np.zeros((), np.int64)
 
 
+def _sub(tree, *keys):
+    """tree[k0][k1]..., or {} where a key is missing (a `batch_stats` tree
+    has no entry for a block without BN)."""
+    for k in keys:
+        tree = tree.get(k, {})
+    return tree
+
+
 def _conv_block(sd, key, p, s, conv_key="conv", bn_key="bn", deconv=False):
-    """flax <block>/{Conv_0|ConvTranspose_0} + Norm_0/BatchNorm_0 -> torch
-    <key>.<conv_key>.* + <key>.<bn_key>.*"""
+    """flax <block>/{Conv_0|ConvTranspose_0} + Norm_0/{BatchNorm_0 |
+    GroupNorm_0 | nothing} -> torch <key>.<conv_key>.* + <key>.<bn_key>.*"""
     layer = p["ConvTranspose_0" if deconv else "Conv_0"]
     sd[f"{key}.{conv_key}.weight"] = (_deconv_w if deconv else _conv_w)(layer["kernel"])
     if "bias" in layer:
         sd[f"{key}.{conv_key}.bias"] = layer["bias"]
-    _bn(sd, f"{key}.{bn_key}", p["Norm_0"]["BatchNorm_0"], s["Norm_0"]["BatchNorm_0"])
+    norm = p.get("Norm_0", {})
+    if "BatchNorm_0" in norm:
+        _bn(sd, f"{key}.{bn_key}", norm["BatchNorm_0"], _sub(s, "Norm_0", "BatchNorm_0"))
+    elif "GroupNorm_0" in norm:
+        _ln(sd, f"{key}.{bn_key}", norm["GroupNorm_0"])
 
 
 def _plain(sd, key, p, transform=_conv_w):
@@ -78,14 +95,14 @@ ENCODER_BLOCKS = ("conv00", "conv01", "downsample1", "conv10", "conv11",
 def encoder_state(params, stats, prefix="") -> dict:
     sd: dict = {}
     for name in ENCODER_BLOCKS:
-        _conv_block(sd, f"{prefix}{name}", params[name], stats[name])
+        _conv_block(sd, f"{prefix}{name}", params[name], _sub(stats, name))
     return sd
 
 
 def fpn_decoder_state(params, stats, prefix="") -> dict:
     sd: dict = {}
     for k in range(4):
-        _conv_block(sd, f"{prefix}out{k}", params[f"out{k}"], stats[f"out{k}"],
+        _conv_block(sd, f"{prefix}out{k}", params[f"out{k}"], _sub(stats, f"out{k}"),
                     conv_key="0", bn_key="1")
     for k in (1, 2, 3):
         _plain(sd, f"{prefix}inner{k}", params[f"inner{k}"])
@@ -94,11 +111,11 @@ def fpn_decoder_state(params, stats, prefix="") -> dict:
 
 def twin_decoder_state(params, stats, prefix="") -> dict:
     sd: dict = {}
-    _conv_block(sd, f"{prefix}upsampler0", params["upsampler0"], stats["upsampler0"],
+    _conv_block(sd, f"{prefix}upsampler0", params["upsampler0"], _sub(stats, "upsampler0"),
                 conv_key="0", bn_key="1", deconv=True)
     for k in (1, 2, 3):
         _plain(sd, f"{prefix}inner{k}", params[f"inner{k}"])
-        _conv_block(sd, f"{prefix}smooth{k}", params[f"smooth{k}"], stats[f"smooth{k}"],
+        _conv_block(sd, f"{prefix}smooth{k}", params[f"smooth{k}"], _sub(stats, f"smooth{k}"),
                     conv_key="0", bn_key="1")
     return sd
 
@@ -153,23 +170,24 @@ def vit_decoder_state(params, stats, prefix="") -> dict:
     convs at `decoder.0/1` and `decoder.3/4`."""
     sd: dict = {}
     for name in ("conv_l", "conv_r"):
-        _conv_block(sd, f"{prefix}attn.{name}", params["attn"][name], stats["attn"][name],
+        _conv_block(sd, f"{prefix}attn.{name}", params["attn"][name], _sub(stats, "attn", name),
                     conv_key="0", bn_key="1")
     _plain(sd, f"{prefix}attn.proj", params["attn"]["proj"])
     for name, keys in (("deconv1", ("0", "1")), ("deconv2", ("3", "4"))):
-        _conv_block(sd, f"{prefix}decoder", params[name], stats[name], conv_key=keys[0],
+        _conv_block(sd, f"{prefix}decoder", params[name], _sub(stats, name), conv_key=keys[0],
                     bn_key=keys[1], deconv=True)
     return sd
 
 
 def cost_reg_state(params, stats, three_d: bool, prefix="") -> dict:
-    """CostRegNet (three_d=False) or CostRegNet3D (three_d=True)."""
+    """CostRegNet (three_d=False), or CostRegNet3D or CostRegNet2D
+    (three_d=True: their transposed convs are `Sequential`s)."""
     sd: dict = {}
     for n in (1, 2, 3, 4, 5, 6):
-        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], stats[f"conv{n}"])
+        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], _sub(stats, f"conv{n}"))
     for n in (7, 9, 11):
         keys = dict(conv_key="0", bn_key="1") if three_d else {}
-        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], stats[f"conv{n}"],
+        _conv_block(sd, f"{prefix}conv{n}", params[f"conv{n}"], _sub(stats, f"conv{n}"),
                     deconv=True, **keys)
     if "inner" in params:
         _plain(sd, f"{prefix}inner", params["inner"])
@@ -180,26 +198,30 @@ def cost_reg_state(params, stats, three_d: bool, prefix="") -> dict:
 def vis_state(params, stats, prefix="") -> dict:
     sd: dict = {}
     for j in (0, 1, 2):
-        _conv_block(sd, f"{prefix}{j}", params[f"conv{j}"], stats[f"conv{j}"])
+        _conv_block(sd, f"{prefix}{j}", params[f"conv{j}"], _sub(stats, f"conv{j}"))
     _plain(sd, f"{prefix}3", params["conv3"])
     return sd
 
 
 def to_torch(sd: dict) -> dict:
-    """Copies, so read-only arrays (a JAX array's numpy view) are taken too."""
-    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+    """Copies, so read-only arrays (a JAX array's numpy view) are taken too;
+    a 0-d array (epipoleV2's `attn_temp`) stays 0-d."""
+    return {k: torch.tensor(np.array(v)) for k, v in sd.items()}
 
 
 def _cascade_state(params, batch_stats, ndepths, model_th) -> dict:
     """The parts both models share: the FPN and the stages."""
     sd: dict = {}
-    sd.update(encoder_state(params["encoder"], batch_stats["encoder"], "encoder."))
-    sd.update(fpn_decoder_state(params["decoder"], batch_stats["decoder"], "decoder."))
+    sd.update(encoder_state(params["encoder"], _sub(batch_stats, "encoder"), "encoder."))
+    sd.update(fpn_decoder_state(params["decoder"], _sub(batch_stats, "decoder"), "decoder."))
     for i, nd in enumerate(ndepths):
-        p, s = params[f"stage{i + 1}"], batch_stats[f"stage{i + 1}"]
-        sd.update(vis_state(p["vis"], s["vis"], f"fusions.{i}.vis."))
-        sd.update(cost_reg_state(p["cost_reg"], s["cost_reg"], nd <= model_th,
-                                 f"fusions.{i}.cost_reg."))
+        p, s = params[f"stage{i + 1}"], _sub(batch_stats, f"stage{i + 1}")
+        if "vis" in p:
+            sd.update(vis_state(p["vis"], _sub(s, "vis"), f"fusions.{i}.vis."))
+        if "attn_temp" in p:
+            sd[f"fusions.{i}.attn_temp"] = p["attn_temp"]
+        sd.update(cost_reg_state(p["cost_reg"], _sub(s, "cost_reg"),
+                                 "vis" not in p or nd <= model_th, f"fusions.{i}.cost_reg."))
     return sd
 
 
@@ -207,7 +229,7 @@ def convert_flax_twin(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
                       vit_depths=(2, 2, 10, 4)) -> dict:
     """JAX TwinMVSNet variables -> the port's TwinMVSNet `state_dict`."""
     sd = _cascade_state(params, batch_stats, ndepths, model_th)
-    sd.update(twin_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
+    sd.update(twin_decoder_state(params["decoder_vit"], _sub(batch_stats, "decoder_vit"),
                                  "decoder_vit."))
     sd.update(twins_state(params["vit"], vit_depths, "vit."))
     return to_torch(sd)
@@ -217,7 +239,7 @@ def convert_flax_dino(params, batch_stats, ndepths=(32, 16, 8, 4), model_th=8,
                       vit_depth=12) -> dict:
     """JAX DINOMVSNet variables -> the port's DINOMVSNet `state_dict`."""
     sd = _cascade_state(params, batch_stats, ndepths, model_th)
-    sd.update(vit_decoder_state(params["decoder_vit"], batch_stats["decoder_vit"],
+    sd.update(vit_decoder_state(params["decoder_vit"], _sub(batch_stats, "decoder_vit"),
                                 "decoder_vit."))
     sd.update(dino_vit_state(params["vit"], vit_depth, "vit."))
     return to_torch(sd)

@@ -44,8 +44,10 @@ from mvsformer_torch.train.meters import DictAverageMeter  # noqa: E402
 from mvsformer_torch.train.optim import set_step, warmup_multistep_schedule  # noqa: E402
 from mvsformer_torch.train.trainer import Trainer  # noqa: E402
 from mvsformer_torch.utils.convert_weights import merge_pretrained_backbone  # noqa: E402
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 STEPS_PER_EPOCH, EPOCHS, SAVED_STEP = 25, 4, 37
 LR_RTOL = 1e-6  # the JAX schedule is float32

@@ -35,6 +35,8 @@ from mvsformer_torch.utils.cams import read_cam_file, write_cam_file
 from mvsformer_torch.utils.image import read_image, write_png
 from mvsformer_torch.utils.pfm import save_pfm
 
+torch.set_num_threads(2)  # xdist workers share the cores
+
 pytestmark = pytest.mark.cuda
 
 

@@ -60,8 +60,10 @@ from mvsformer_torch.utils.convert_weights import (convert_flax_grads, dino_vit_
 
 from test_torch_model import make_batch, randomise_bn, to_numpy
 from test_torch_train_step import jax_x64, make_train_batch, micro, to_numpy64
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DINO_VIT = dict(twin=False, vit_arch="vit_small", vit_ch=384, out_ch=64, att_fusion=True)

@@ -28,8 +28,10 @@ from mvsformer_torch.ops import cuda_build
 from mvsformer_torch.ops.encoder_head import encoder_head, encoder_head_plain
 from mvsformer_torch.ops.fpn_level import fpn_level, fpn_level_plain
 from mvsformer_torch.utils import convert_weights as cw
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 F32 = np.float32

@@ -34,8 +34,10 @@ from mvsformer_torch.utils import cams as port_cams
 from mvsformer_torch.utils import pfm as port_pfm
 from mvsformer_torch.utils import ply as port_ply
 from mvsformer_torch.utils.image import read_image, write_png
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 H, W = 48, 64
 DEPTH = 500.0

@@ -24,8 +24,10 @@ from mvsformer_torch.models import twins
 from mvsformer_torch.ops import cuda_build
 from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 from mvsformer_torch.utils import convert_weights as cw
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 

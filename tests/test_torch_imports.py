@@ -181,8 +181,8 @@ def test_forward_runs_with_tf32_off_and_restores_the_flags(monkeypatch, raises):
 
 
 def test_build_model_rejects_what_later_slices_port():
-    with pytest.raises(NotImplementedError, match="fusion_type"):
-        build_model(ModelConfig(fusion_type="epipole"), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"multi_scale \(ROADMAP A6\)"):
+        build_model(ModelConfig(multi_scale=True), device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():

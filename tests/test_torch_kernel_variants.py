@@ -13,11 +13,14 @@ them.
 """
 
 import pytest
+import torch
 
 from mvsformer_torch import (k1_variants, k2_variants, k3_variants, k4_variants, k6_variants,
                              k8_variants)
 from mvsformer_torch.kernel_variants import ptxas_summary, variant_source
 from mvsformer_torch.ops import cuda_build
+
+torch.set_num_threads(2)  # xdist workers share the cores
 
 CASES = [("warp_corr", name, subs) for name, subs in k1_variants.VARIANTS.items()] + \
         [("vis_net", name, subs) for name, subs in k2_variants.VARIANTS.items()] + \

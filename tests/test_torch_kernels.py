@@ -26,8 +26,10 @@ from mvsformer_torch.ops.stage_tail import depth_decode, depth_decode_plain
 from mvsformer_torch.ops.vis_net import visibility_net_plain
 from mvsformer_torch.ops.warp_corr import warp_group_corr, warp_group_corr_plain
 from mvsformer_torch.utils.convert_weights import to_torch, vis_state
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 

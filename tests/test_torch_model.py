@@ -22,8 +22,10 @@ from mvsformer_torch.config import ModelConfig
 from mvsformer_torch.infer import make_infer_fn
 from mvsformer_torch.models.mvsformer import build_model
 from mvsformer_torch.utils.convert_weights import load_flax_twin
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 CFG = dict(ndepths=[8, 4, 4, 2], depth_interals_ratio=[4.0, 2.67, 1.5, 1.0],
            feat_chs=[8, 16, 32, 64], base_ch=8, depth_type="ce",

@@ -22,8 +22,10 @@ from mvsformer_tpu.models import twins as jtwins
 
 from mvsformer_torch.models import blocks, costreg, decoders, fpn, twins
 from mvsformer_torch.utils import convert_weights as cw
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 
 def randomise(tree, stats, rng):

@@ -18,8 +18,10 @@ from mvsformer_tpu.ops import regression as jreg
 from mvsformer_tpu.ops import resize as jres
 
 from mvsformer_torch.ops import correlation, geometry, hypotheses, regression, resize, warp_corr
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 

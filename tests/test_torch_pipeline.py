@@ -61,8 +61,10 @@ from mvsformer_torch.utils.pfm import read_pfm, save_pfm
 from mvsformer_torch.utils.ply import read_ply
 
 from test_torch_model import CFG, TMPS, make_batch, randomise_bn, to_numpy
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 NV, SIZE, GT_SIZE, NDEPTHS, NUM_VIEW = 4, 64, 80, 48, 3
 DEPTH_ATOL, CONF_ATOL, METRIC_ATOL = 1e-2, 1e-4, 1e-4
@@ -357,13 +359,29 @@ def test_cli_runs_save_depth_and_fusion_on_the_cpu(tree, ckpt, tmp_path):
     (["--data_parallel", "2"], "ROADMAP A5"),
     (["--view_parallel", "2"], "ROADMAP A5"),
     (["--which_ckpt", "orbax_best"], "ROADMAP A4"),
-    (["--torch_ckpt", "x.pth", "--eval_view_chunk", "2"], "eval_view_chunk"),
 ])
 def test_cli_refuses_what_is_not_ported(tree, ckpt, tmp_path, argv, match):
     os.makedirs(os.path.join(ckpt["run"], "orbax_best"), exist_ok=True)  # a JAX checkpoint dir
     with pytest.raises(NotImplementedError, match=match):
         port_cli.main(["--testpath", tree["data"], "--ckpt_dir", ckpt["run"], "--outdir",
                        str(tmp_path), "--device", "cpu"] + argv)
+
+
+def test_cli_serves_over_view_chunks(tree, ckpt, saved, tmp_path):
+    """`--eval_view_chunk 2` runs the backbone over chunks of 2 of the 3
+    views; every depth map is the unchunked run's within the model test's
+    bound."""
+    out, listfile = str(tmp_path / "out"), tmp_path / "list.txt"
+    listfile.write_text("scan1\n")
+    port_cli.main(["--testpath", tree["data"], "--testlist", str(listfile),
+                   "--ckpt_dir", ckpt["run"], "--torch_ckpt", ckpt["path"], "--outdir", out,
+                   "--max_h", str(SIZE), "--max_w", str(SIZE), "--ndepths", str(NDEPTHS),
+                   "--num_view", str(NUM_VIEW), "--device", "cpu", "--skip_fusion",
+                   "--eval_view_chunk", "2"])
+    for vid in range(NV):
+        got = read_pfm(artifact(out, "depth_est", vid, ".pfm"))[0]
+        want = read_pfm(artifact(saved["port"], "depth_est", vid, ".pfm"))[0]
+        np.testing.assert_allclose(got, want, rtol=0, atol=DEPTH_ATOL)
 
 
 def test_cli_help_states_the_departures(capsys):

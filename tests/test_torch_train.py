@@ -23,8 +23,10 @@ from mvsformer_torch.models.twins import ALTGVT, drop_path
 from mvsformer_torch.ops import losses, regression
 from mvsformer_torch.train.optim import build_optimizer, warmup_cosine_factor
 from mvsformer_torch.train.step import _clip_by_global_norm, micro_batches
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 KEYS = ("stage1", "stage2")
@@ -92,9 +94,21 @@ def test_range_and_bins_match_jax(rng):
 
 @pytest.mark.parametrize("depth_type", ["re", "was", "mixup_ce"])
 def test_other_losses_are_not_ported_yet(rng, depth_type):
+    """Named when the port refused these losses; they are ported now, so
+    each must give the JAX loss on these outputs (fp32; the float64 values
+    and gradients are tests/test_torch_depth_types.py's)."""
     outs, gt, mask = stage_outputs(rng, True)
-    with pytest.raises(NotImplementedError):
-        losses.total_loss(outs, gt, mask, None, depth_type, stage_keys=KEYS)
+    for k in KEYS:  # the re loss reads the regressed depth, the was loss the softmax
+        outs[k]["depth"] = rng.uniform(420, 900, gt[k].shape).astype(np.float32)
+        outs[k]["prob_volume"] = np.asarray(jax.nn.softmax(outs[k]["prob_volume_pre"], axis=1))
+    div = np.full((2,), 10.0, np.float32)
+    want, _ = jlosses.total_loss(outs, gt, mask, div, depth_type, stage_keys=KEYS)
+    got, _ = losses.total_loss({k: {n: T(a) for n, a in o.items()} for k, o in outs.items()},
+                               {k: T(v) for k, v in gt.items()},
+                               {k: T(v) for k, v in mask.items()}, T(div), depth_type,
+                               stage_keys=KEYS)
+    assert np.isfinite(float(got))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def test_training_decode_matches_jax(rng):

@@ -51,8 +51,10 @@ from mvsformer_torch.utils.image import (hsv_to_rgb_u8, resize_area_u8,  # noqa:
 from mvsformer_torch.utils.pfm import save_pfm  # noqa: E402
 
 from test_data import make_dtu_tree  # noqa: E402
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCALES = (0.45, 0.5, 0.6, 0.83)

@@ -44,8 +44,10 @@ from mvsformer_torch.train.step import TrainStep
 from mvsformer_torch.utils.convert_weights import convert_flax_grads, load_flax_twin
 
 from tests.test_torch_model import CFG, make_batch, randomise_bn, to_numpy
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(4)
+hang_watchdog = watchdog()
 
 KEYS = ("stage1", "stage2", "stage3", "stage4")
 # The default optimizer, without the warmup (its first step has LR 0).

@@ -56,8 +56,10 @@ from mvsformer_torch.utils.pfm import read_pfm  # noqa: E402
 
 import chip_smoke  # noqa: E402
 from test_data import make_dtu_tree  # noqa: E402
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 METRIC_RTOL = 1e-6
 

@@ -32,8 +32,10 @@ from mvsformer_torch.ops.warp_corr_train import (WarpCorrTrain, warp_corr_bwd,
                                                  warp_corr_bwd_plain)
 
 from tests.test_warp import random_cameras
+from test_torch_watchdog import watchdog
 
 torch.set_num_threads(2)
+hang_watchdog = watchdog()
 
 T = torch.from_numpy
 G = 8
