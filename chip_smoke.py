@@ -55,7 +55,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    launch counts set to 0 just before it and read just after it: K7
    `warp_corr_fwd` and K8 `warp_corr_bwd` launch 4 times per micro-batch
    (8 per step), K1-K6 never. Loss and every gradient must be finite and
-   every trainable tensor's gradient non-zero. One more step is timed
+   every trainable tensor's gradient non-zero, but those zero in exact
+   arithmetic (the cost regularisers' probability biases, ahead of the
+   softmax over depth, and conv biases ahead of a BN), whose rounding
+   noise can sum to exactly zero, here and in phases 13-15. One more step is timed
    layer by layer, forward and backward, under torch.profiler (the
    device's idle share and top kernels), and one records the tensors it
    feeds K7 and K8.
@@ -97,21 +100,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    ModelConfig, batch 8, 5 views, 192 depths, the 25 crop sizes and the
    scale-batch map, augmentation, 4 loader threads; only the data paths,
    1 epoch, a model_step every 2 steps and a log line every step are
-   set) on a synthetic DTU training tree written by the port's writers:
-   one scan of 6 views x 7 lights of the tilted plane, 1600x1200 PNG whose
-   rows take libpng's adaptive filters, cam files and Depths_raw. 5 steps
-   at the 5 largest crop sizes (1024x1280 first, 8 micro-batches of 1),
-   a `--profile_dir` window of steps 2-3, validation over the 42 samples
-   (6 batches, B=8 and B=2, 512x640). Then `--resume` with 2 epochs (5
-   more steps and a validation), then `python -m mvsformer_torch.test
-   --which_ckpt model_best` on phase 11's eval scan. Each step must show a
+   set; the CLI's default dtype, bf16) on a synthetic DTU training tree
+   written by the port's writers: one scan of 5 views x 7 lights of the
+   tilted plane, 1600x1200 PNG whose rows take libpng's adaptive filters,
+   cam files and Depths_raw. 4 steps at the 4 largest crop sizes
+   (1024x1280 first, 8 micro-batches of 1), a `--profile_dir` window of
+   steps 2-3, validation over the 35 samples (5 batches, B=8 and B=3,
+   512x640). Then `--resume` with 2 epochs (4 more steps and a
+   validation), then `python -m mvsformer_torch.test --which_ckpt
+   model_best` (bf16, its default) on phase 11's eval scan. Each step must show a
    finite loss, the barrels' crop size, K7/K8 4 launches a micro-batch and
    K1-K6 none; each validation K1-K6 at their per-request counts a batch;
    model_best, model_last, model_step and their sidecars must be written;
-   the resume must start at epoch 2, global step 5, at LR schedule(5);
+   the resume must start at epoch 2, global step 4, at LR schedule(4);
    model_last restored in this process must equal the file bit for bit;
    the test CLI's view 0 must match `make_infer_fn` of the restored model
-   within the card-to-CPU bounds. Prints per step its ms, crop, micro-
+   in bf16 within the card-to-CPU bounds. Prints per step its ms, crop, micro-
    batches and loader wait; load ms per sample, validation ms per batch,
    checkpoint ms and bytes, peak memory, the profile window's idle share.
    Then K1-K6 are held against their plain versions on one validation batch
@@ -130,9 +134,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    outputs as phase 5 does; hold K1-K5 to their plain versions at every
    launch of one request (the same bits in 5 runs); run the __graft_entry__
    request on the card and on the CPU (phase 7's bounds); run `python -m
-   mvsformer_torch.test` with the -p config on phase 11's eval scan from a
-   DINOMVSNet checkpoint in the reference's layout, view 0 against
-   `make_infer_fn` within the card-to-CPU bounds. Then train at phase 8's
+   mvsformer_torch.test --dtype fp32` with the -p config on phase 11's eval
+   scan from a DINOMVSNet checkpoint in the reference's layout, view 0
+   against `make_infer_fn` within the card-to-CPU bounds. Then train at phase 8's
    shape with the -p config (B=8 as 2 micro-batches of 4, 5 views, 512x640,
    192 depths, fix): one warm-up and 3 timed steps, K7/K8 4 launches a
    micro-batch and K1-K6 none, the loss and every trainable gradient finite
@@ -162,7 +166,40 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches a micro-batch, K1-K6 none, the loss and every trainable
    gradient finite and non-zero. Then one fp32 step of cnn / re / GN on
    the card against the CPU at phase 10's shape (phase 10's bounds).
-15. Print one JSON line of per-kernel numbers, then, last, the result line
+15. The bf16 mode (`build_model(..., dtype=torch.bfloat16)`, the JAX
+   package's and both CLIs' default; K2, K4, K5 and K6 as fp32 islands).
+   TwinMVSNet at the default ModelConfig with phase 4's weights: the DTU
+   request (one warm-up, 3 timed requests, counts set to 0 before each:
+   K1-K3 4, K4 1, K5 3, K6 9), its ms, peak memory, ms per layer and idle
+   share, its gap to the fp32 request on the same weights, the outputs
+   checked as phase 5 does; every kernel held to its plain version at
+   every launch of one bf16 request (the islands on their bf16 inputs cast
+   up, before the output cast; phase 6's tolerances; the same bits in 5
+   runs), K1 and K3 fed fp32 and the islands bf16, and each island's casts
+   up and down timed by CUDA events beside the bound of a bf16 body; the
+   __graft_entry__ request's bf16 forward on the card against the CPU's
+   within twice the CPU's own bf16-vs-fp32 gap in the mean (4 times at the
+   maximum) plus phase 7's bounds. DINOMVSNet (-p) in bf16: the DTU request (one
+   warm-up, 3 timed, launches as phase 13's), its outputs as phase 5. The
+   bf16 training step at phase 8's shape: one warm-up and 3 timed steps,
+   K7/K8 4 launches a micro-batch and K1-K6 none, the loss finite, every
+   gradient finite and fp32 and non-zero but those zero in exact
+   arithmetic (the probability biases, conv biases ahead of a BN) and the
+   visibility CNNs' noise (`vis_noise_only`: a stage's whole CNN where its
+   views' bf16 entropy maps agree at every pixel, its last bias where they
+   agree at more than 0.9; the shares printed), the parameters, buffers
+   and AdamW moments fp32, the peak memory; one bf16 step on the card
+   against the CPU at phase 10's shape, all three steps (card bf16, CPU
+   bf16, CPU fp32) on the CPU bf16 step's hypotheses: each layer group's
+   gradient by `grad_group_check` (relative L2, cosine and norm ratio
+   within twice the CPU's bf16-vs-fp32 gap, the L2 under 0.9, the gap
+   under 0.8), which must reject zero, random, negated, halved and 1.5 x
+   card gradients in every group; the running stats' mean within twice
+   the gap, their max and the RMS of the five losses within 4 times. Each
+   kernel's entry of the
+   kernels line adds this phase's checks and a request's, a DINO request's
+   and a step's launches.
+16. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
    the CLI runs' output to chiprun_out/training_run_*.log and
    chiprun_out/dino_test.log.
@@ -183,6 +220,7 @@ tensor term "operations".
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -809,6 +847,42 @@ def grads_of(model):
     return {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
 
 
+def zero_in_exact_arithmetic(torch, model):
+    """The trainable tensors whose gradient is zero in exact arithmetic, so
+    that it holds only rounding noise, which can sum to exactly zero (fp32
+    on the CPU gives 0.0 for a probability bias in one of two steps of the
+    `was` toy step): the cost regularisers' probability biases, ahead of
+    the softmax over depth, and the biases of convs ahead of a batch norm
+    or of a group norm with one channel a group (with more, only the
+    bias's mean over a group drops out)."""
+    def removes_bias(norm):
+        return (isinstance(norm, torch.nn.modules.batchnorm._BatchNorm)
+                or (isinstance(norm, torch.nn.GroupNorm)
+                    and norm.num_groups == norm.num_channels))
+
+    names = {n for n, _ in model.named_parameters() if n.endswith("cost_reg.prob.bias")}
+    for name, mod in model.named_modules():
+        if (isinstance(mod, torch.nn.Sequential) and len(mod) > 1 and removes_bias(mod[1])
+                and getattr(mod[0], "bias", None) is not None):
+            names.add(f"{name}.0.bias")
+    return names
+
+
+def zero_gradients(torch, model):
+    return sorted(n for n, g in grads_of(model).items()
+                  if g is not None and not bool((g != 0).any()))
+
+
+def bad_gradients(torch, model, zero_ok=()):
+    """The trainable tensors whose gradient is missing, non-finite or not
+    fp32, or all zero though neither zero in exact arithmetic nor in
+    `zero_ok`."""
+    exact = zero_in_exact_arithmetic(torch, model) | set(zero_ok)
+    return [n for n, g in grads_of(model).items()
+            if g is None or g.dtype != torch.float32 or not bool(torch.isfinite(g).all())
+            or (n not in exact and not bool((g != 0).any()))]
+
+
 def compare_steps(torch, card_model, cpu_model, before, card_metrics, cpu_metrics, opt_cfg):
     """Card against CPU after one training step from the same weights:
     (ok, {what: worst error}, message lines)."""
@@ -1014,12 +1088,12 @@ def training_phase(torch, card, eval_kernels):
 
     if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k.startswith("loss")):
         raise RuntimeError("non-finite training loss")
-    bad = [n for n, g in grads_of(model).items()
-           if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    bad = bad_gradients(torch, model)
     if bad:
         raise RuntimeError(f"{len(bad)} trainable tensors with a missing, non-finite or "
                            f"all-zero gradient: {bad[:8]}")
-    print(f"gradients: all {len(trainable)} trainable tensors finite and non-zero")
+    print(f"gradients: all {len(trainable)} trainable tensors finite and non-zero (but for "
+          f"those zero in exact arithmetic: {zero_gradients(torch, model)})")
 
     # 8d. Layer split of one step, and the device's idle share.
     layers, busy_ms, wall_ms, top = train_layer_breakdown(torch, model, step, batch)
@@ -1655,14 +1729,14 @@ def pipeline_phase(torch, card, specs, device="cuda"):
 
 # The training run (phase 12): `python -m mvsformer_torch.train` with
 # configs/config_mvsformer.json as it ships, on a synthetic DTU training
-# tree of one scan (6 views x 7 lights of the tilted plane at 1600x1200,
+# tree of one scan (5 views x 7 lights of the tilted plane at 1600x1200,
 # PNG rows with libpng's adaptive filters), then `--resume` for a second
 # epoch, then `python -m mvsformer_torch.test --which_ckpt model_best`.
 RUN_CONFIG = "configs/config_mvsformer.json"
 # What the config must still give: batch, views, depths, crop sizes, loader
 # threads, augmentation.
 RUN_SHAPE = (8, 5, 192, 25, 4, True)
-RUN_VIEWS = 6                  # x 7 lights: 42 samples, 5 steps of 8 (2 dropped), 6 val batches
+RUN_VIEWS = 5                  # x 7 lights: 35 samples, 4 steps of 8 (3 dropped), 5 val batches
 DTU_LIGHTS = 7                 # the lights `data/dtu.py` reads for every view
 RUN_PROFILE = (1, 2)           # --profile_start, --profile_steps
 RUN_TIMEOUT_S = 900
@@ -1948,7 +2022,8 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
             "--which_ckpt", "model_best", "--outdir", out, "--skip_fusion", "--max_h", str(H),
             "--max_w", str(W), "--ndepths", str(NDEPTH_FULL), "--num_view", str(PIPE_NUM_VIEW)]
             + cli_device, "training_run_test")
-        best = build_model(cfg.arch, device=device)
+        # The CLI computes in bf16, its default: make_infer_fn of the bf16 model.
+        best = build_model(cfg.arch, device=device, dtype=torch.bfloat16)
         load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), best)
         ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
                             interval_scale=1.06, max_h=H, max_w=W)
@@ -1960,8 +2035,8 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
                              - depth[0].cpu().numpy()).max())
         gap_c = float(np.abs(np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
                              - conf[0].cpu().numpy()).max())
-        print(f"test CLI on model_best ({test_s:.1f} s): view 0 against make_infer_fn of the "
-              f"restored model: depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance "
+        print(f"test CLI on model_best ({test_s:.1f} s, bf16): view 0 against make_infer_fn of "
+              f"the restored bf16 model: depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance "
               f"{E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})", flush=True)
         if gap_d > E2E_DEPTH_ATOL or gap_c > E2E_CONF_ATOL:
             raise RuntimeError("the test CLI's view 0 disagrees with make_infer_fn")
@@ -2177,8 +2252,8 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
             "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", root,
             "--torch_ckpt", os.path.join(root, "dino.pth"), "--outdir", out, "--skip_fusion",
             "--max_h", str(H), "--max_w", str(W), "--ndepths", str(NDEPTH_FULL),
-            "--num_view", str(PIPE_NUM_VIEW)] + ([] if device == "cuda" else ["--device", device]),
-            "dino_test")
+            "--num_view", str(PIPE_NUM_VIEW), "--dtype", "fp32"]
+            + ([] if device == "cuda" else ["--device", device]), "dino_test")
         ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
                             interval_scale=1.06, max_h=H, max_w=W)
         sample = collate([ds[0]])
@@ -2230,8 +2305,7 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
     mean_step = sum(step_times) / len(step_times)
     if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k.startswith("loss")):
         raise RuntimeError("non-finite DINO training loss")
-    bad = [n for n, g in grads_of(model).items()
-           if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+    bad = bad_gradients(torch, model)
     with_grad = [n for n, p in model.vit.named_parameters()
                  if p.requires_grad or p.grad is not None]
     moved = [k for k, v in model.vit.state_dict().items()
@@ -2245,7 +2319,8 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
           + f" ms; mean {mean_step * 1e3:.2f} ms, {1 / mean_step:.4f} train-steps/s, peak memory "
           f"{train_peak_gb:.2f} GB; launches per step {step_launches}; loss "
           f"{metrics[-1]['loss']:.5f}; all {len(trainable)} trainable gradients finite and "
-          f"non-zero; the ViT's {len(vit_before)} tensors took no gradient and are bit-equal "
+          f"non-zero (but those zero in exact arithmetic: {zero_gradients(torch, model)}); the "
+          f"ViT's {len(vit_before)} tensors took no gradient and are bit-equal "
           f"after {N_STEPS + 1} steps [{card}]", flush=True)
     del model, step, batch
     torch.cuda.empty_cache()
@@ -2466,8 +2541,7 @@ def variants_phase(torch, card, eval_specs, device="cuda"):
         if {n: counts.get(n, 0) for n in per_step} != per_step or set(counts) - set(per_step):
             raise RuntimeError(f"variant step {name}: launches {counts}, want {per_step}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        bad = [n for n, g in grads_of(model).items()
-               if g is None or not bool(torch.isfinite(g).all()) or not bool((g != 0).any())]
+        bad = bad_gradients(torch, model)
         losses = [v for k, v in metrics.items() if k.startswith("loss")]
         if bad or not all(math.isfinite(v) for v in losses):
             raise RuntimeError(f"variant step {name}: loss {metrics['loss']}, bad gradients "
@@ -2475,7 +2549,8 @@ def variants_phase(torch, card, eval_specs, device="cuda"):
         print(f"variant step {name} ({TRAIN_B} as {n_micro} micro-batches of {TRAIN_MICRO}, "
               f"{TRAIN_V} views, {TRAIN_H}x{TRAIN_W}, {NDEPTH_FULL} depths): {ms:.2f} ms, "
               f"peak memory {peak_gb:.2f} GB; launches {counts}; loss {metrics['loss']:.5f}; "
-              f"all {len(grads_of(model))} trainable gradients finite and non-zero [{card}]",
+              f"all {len(grads_of(model))} trainable gradients finite and non-zero (but those "
+              f"zero in exact arithmetic: {zero_gradients(torch, model)}) [{card}]",
               flush=True)
         for n, c in counts.items():
             total[n] = total.get(n, 0) + c
@@ -2517,6 +2592,515 @@ def variants_phase(torch, card, eval_specs, device="cuda"):
     details["card_vs_cpu_step"] = step_errs
     details["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 14 (the variants): {details['phase_s']:.1f} s", flush=True)
+    return {"rows": rows, "launches": total, "details": details}
+
+
+# The bf16 mode (phase 15): the models built with `dtype=torch.bfloat16`,
+# the JAX package's default (`build_model(cfg, dtype=jnp.bfloat16)`, both
+# CLIs' `--dtype bf16`): bf16 convolutions and matmuls with fp32
+# parameters, and the fp32 islands (projections, hypotheses, warp inputs,
+# correlation, view weights and sum, logits, decode, losses, norms'
+# statistics, softmaxes). K1, K3, K7 and K8 take fp32 as ever; K2, K4, K5
+# and K6 are fp32 islands: their wrappers cast the bf16 inputs up, launch
+# the fp32 kernel and cast the outputs down (K2's weight stays fp32).
+BF16_MULT = 2.0            # the card's bf16 output against the CPU's, in the CPU's own
+                           # bf16-vs-fp32 gaps (tests/test_torch_bf16.py's rule): the
+                           # mean difference over pixels and a gradient group's L2
+BF16_MAX_MULT = 4.0        # the same for a maximum over pixels and for the RMS over a
+                           # step's five losses: a ratio of two draws of one rounding
+                           # noise in an extreme value or in five scalars passes 2 a few
+                           # times in a hundred (an H100 read 1.75 at a maximum)
+BF16_FLOPS_PER_S = 989.4e12  # dense BF16 on the tensor cores, the H100 SXM's peak
+BF16_GRAD_FLOOR = 1e-3     # of a gradient group's relative L2 and 1 - cosine
+BF16_GRAD_GAP_MAX = 0.8    # a group whose bf16-vs-fp32 gap is larger is not compared: fail
+BF16_GRAD_L2_MAX = 0.9     # a group's relative L2 error, whatever the gap: below the 1.0 of a
+                           # zero gradient, the 1.41 of an unrelated one of the same norm
+BF16_NORM_FLOOR = 0.1      # of a group's norm ratio, beside BF16_MULT x the gap's
+ISLANDS = ("visibility_net", "encoder_head", "fpn_level", "gsa_attention")
+STEP_GROUPS = ("encoder", "vit", "decoder_vit", "decoder", "fusions.0", "fusions.1",
+               "fusions.2", "fusions.3")
+
+
+def bf16_gap_check(got, want, ref32, floor, what):
+    """`got` (the card's bf16 output) against `want` (the CPU's bf16 output)
+    within BF16_MULT times the CPU's gap |want - ref32| plus `floor` in the
+    mean of the absolute differences, and BF16_MAX_MULT times it in their
+    maximum. Returns (ok, text)."""
+    got, want, ref32 = (t.detach().float().cpu() for t in (got, want, ref32))
+    err, gap = (got - want).abs(), (want - ref32).abs()
+    ok = (float(err.mean()) <= BF16_MULT * float(gap.mean()) + floor
+          and float(err.max()) <= BF16_MAX_MULT * float(gap.max()) + floor)
+    return ok, (f"{what} mean {float(err.mean()):.3e} (gap {float(gap.mean()):.3e}), max "
+                f"{float(err.max()):.3e} (gap {float(gap.max()):.3e})")
+
+
+def bf16_bound_ms(nbytes, tensor_macs):
+    """An island's least time as a bf16 body: its bytes at 2 B an element
+    (the cost functions count 4) over the memory rate, and its tensor-core
+    multiply-adds, one product each, over the dense BF16 rate. Returns (ms,
+    the term that binds)."""
+    times = {"bytes": nbytes / 2 / HBM_BYTES_PER_S,
+             "operations": 2 * tensor_macs / BF16_FLOPS_PER_S}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def island_casts(torch, name, spec, args, kwargs):
+    """(up ms, down ms) of one island launch by CUDA events: every bf16
+    tensor argument cast to fp32, and every output of the fp32 kernel cast
+    to bf16 (K2's weight is not cast)."""
+    from mvsformer_torch.ops import cuda_build
+
+    ups = [t for t in tensors_of(args) if t.dtype == torch.bfloat16]
+    with torch.no_grad():
+        outs = tensors_of(spec["kernel"](*cuda_build.up_cast(args), **kwargs))
+        up_ms = time_ms(torch, lambda: [t.float() for t in ups])
+        down_ms = (0.0 if name == "visibility_net"
+                   else time_ms(torch, lambda: [t.to(torch.bfloat16) for t in outs]))
+    return up_ms, down_ms
+
+
+def entropy_agreement_hooks(torch, model, views, shares):
+    """Forward pre-hooks that record in `shares`, per stage and micro-batch,
+    the share of pixels at which the `views` source views' entropy maps,
+    the inputs of the stage's visibility CNN (a training forward calls it
+    once per view, in turn), are equal. At random weights a stage's
+    correlation is almost flat over depth, so its bf16 entropy rounds to
+    log(D)'s bf16 value at most pixels of every view: where the maps agree
+    the views' weights are equal and their terms in the CNN's gradient
+    cancel, exactly in exact arithmetic where they agree everywhere (but
+    for the 1e-6 in the view mean's denominator). The JAX package casts the
+    entropy to bf16 too."""
+    pending = {}
+
+    def note(i, ent):
+        pending.setdefault(i, []).append(ent.detach().clone())
+        if len(pending[i]) == views:
+            maps = torch.stack(pending.pop(i))
+            shares.setdefault(i, []).append(float((maps == maps[:1]).all(0).float().mean()))
+    return [stage.vis.register_forward_pre_hook(lambda m, a, i=i: note(i, a[0]))
+            for i, stage in enumerate(model.fusions) if hasattr(stage, "vis")]
+
+
+def group_l2(torch, model, names):
+    return torch.cat([dict(model.named_parameters())[n].grad.detach().float().cpu().reshape(-1)
+                      for n in names])
+
+
+def grad_group_check(got, want, ref32):
+    """A gradient group `got` against `want` (the reference's bf16
+    gradient), with `ref32` (its fp32 one) for the gap; flat arrays. Holds
+    the relative L2 error to BF16_MULT times the gap plus BF16_GRAD_FLOOR
+    and under BF16_GRAD_L2_MAX, 1 - cosine to BF16_MULT times the gap's,
+    and the norm ratio's distance from 1 to BF16_MULT times the gap's plus
+    BF16_NORM_FLOOR; a gap over BF16_GRAD_GAP_MAX fails. A zero gradient
+    (cosine taken as 0), an unrelated or a negated one, and one scaled by
+    1/2 or 3/2 fail (`grad_mutants`). Returns (ok, readings)."""
+    import numpy as np
+
+    got, want, ref32 = (np.asarray(x, np.float64).ravel() for x in (got, want, ref32))
+    norm = np.linalg.norm
+
+    def cos(a, b):
+        n = norm(a) * norm(b)
+        return float(a @ b / n) if n > 0 else 0.0
+
+    r = {"err": float(norm(got - want) / norm(want)),
+         "gap": float(norm(want - ref32) / norm(ref32)),
+         "cos": cos(got, want), "cos_gap": cos(want, ref32),
+         "norm": float(norm(got) / norm(want)), "norm_gap": float(norm(want) / norm(ref32))}
+    ok = (r["gap"] <= BF16_GRAD_GAP_MAX
+          and r["err"] <= min(BF16_MULT * r["gap"] + BF16_GRAD_FLOOR, BF16_GRAD_L2_MAX)
+          and 1 - r["cos"] <= BF16_MULT * (1 - r["cos_gap"]) + BF16_GRAD_FLOOR
+          and abs(r["norm"] - 1) <= BF16_MULT * abs(r["norm_gap"] - 1) + BF16_NORM_FLOOR)
+    return ok, r
+
+
+def grad_mutants(got):
+    """Wrong gradients that `grad_group_check` must reject: {name: array}."""
+    import numpy as np
+
+    got = np.asarray(got, np.float64).ravel()
+    noise = np.random.default_rng(0).standard_normal(got.shape)
+    return {"zero": np.zeros_like(got),
+            "random": noise * np.linalg.norm(got) / np.linalg.norm(noise),
+            "negated": -got, "half": got / 2, "x1.5": got * 1.5}
+
+
+def vis_noise_only(model, shares):
+    """The visibility CNNs' tensors whose bf16 gradient may be all zero,
+    from `entropy_agreement_hooks`' shares. Where a stage's views' entropy
+    maps agree at every pixel of every micro-batch, its whole CNN: the
+    views' weights are equal and their terms cancel in exact arithmetic.
+    Where they agree at more than 0.9 of the pixels, the last conv's
+    one-element bias: its gradient is a sum over the views of one bf16
+    scalar each (the conv computes in bf16), which cancel but for the few
+    pixels that differ, and such scalars can round to a sum of exactly zero
+    (an H100 read an all-zero `fusions.1.vis.3.bias` at phase 8's shape,
+    where that stage's maps agree at 0.985-0.987 of the pixels). Every
+    other tensor of the CNNs stays under the non-zero check."""
+    names = set()
+    for i, s in shares.items():
+        prefix = f"fusions.{i}.vis."
+        if min(s) == 1.0:
+            names |= {n for n, _ in model.named_parameters() if n.startswith(prefix)}
+        elif min(s) > 0.9:
+            names.add(prefix + "3.bias")
+    return names
+
+
+@contextlib.contextmanager
+def pinned_schedules(samples):
+    """Within the block, the cascade's hypothesis schedulers (the stages
+    after the first) record each call's result in `samples` if it is empty
+    on entry, else return `samples[i]` at the i-th call. Steps that replay
+    one record see the same hypotheses at every stage, so that an argmax
+    flip of a nearly flat stage under another rounding does not move the
+    next stage's window."""
+    from mvsformer_torch.ops import hypotheses
+
+    replay, calls = bool(samples), []
+
+    def pinned(fn):
+        def call(depth, *args, **kwargs):
+            out = fn(depth, *args, **kwargs)
+            if replay:
+                out = samples[len(calls)].to(out.device, out.dtype)
+            else:
+                samples.append(out.detach().cpu())
+            calls.append(1)
+            return out
+        return call
+
+    saved = {n: getattr(hypotheses, n) for n in ("schedule_inverse_range", "schedule_range")}
+    try:
+        for n, fn in saved.items():
+            setattr(hypotheses, n, pinned(fn))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(hypotheses, n, fn)
+    if replay and len(calls) != len(samples):
+        raise RuntimeError(f"replayed {len(calls)} schedules of {len(samples)} recorded")
+
+
+def bf16_phase(torch, card, specs, device="cuda"):
+    """Phase 15. `specs`: phase 4's K1-K6 specs. Returns {"rows": each
+    kernel's checked launches at the bf16 request, "launches": one bf16
+    request's, one DINO bf16 request's and one bf16 step's counts,
+    "details"}."""
+    import copy
+    import math
+
+    from mvsformer_torch.config import Config, ModelConfig, load_config
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.step import TrainStep
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    # 15a. TwinMVSNet at the default ModelConfig, bf16, phase 4's weights.
+    m32 = build_model(ModelConfig(), device=device)
+    random_init_(m32, torch.Generator().manual_seed(0))
+    m16 = build_model(ModelConfig(), device=device, dtype=bf16)
+    m16.load_state_dict(m32.state_dict())
+    request = synthetic_request(torch, B, V, H, W, device=device)
+    fn16, fn32 = make_infer_fn(m16), make_infer_fn(m32)
+    t0 = time.perf_counter()
+    fn16(*request)
+    torch.cuda.synchronize()
+    print(f"bf16: TwinMVSNet alt_gvt_small, compute dtype {m16.compute_dtype}, parameters "
+          f"{sorted({str(p.dtype) for p in m16.parameters()})}; warm-up request "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for _ in range(N_REQUESTS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, _ = fn16(*request)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        for name, spec in specs.items():
+            if counts.get(name, 0) != spec["per_request"]:
+                raise RuntimeError(f"bf16 {name}: {counts.get(name, 0)} launches in a request, "
+                                   f"want {spec['per_request']}")
+        launches = launches or counts
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = sum(times) / len(times)
+    print(f"bf16 launches per request, the same in each of {N_REQUESTS}: {launches}")
+    print("bf16 requests: " + ", ".join(f"{t * 1e3:.2f}" for t in times)
+          + f" ms; mean {mean_s * 1e3:.2f} ms, {B / mean_s:.4f} depth-maps/s, peak memory "
+          f"{peak_gb:.3f} GB (timed requests) [{card}]", flush=True)
+    d32, c32, _ = fn32(*request)
+    gap = {"depth_max": float((depth - d32).abs().max()),
+           "depth_mean": float((depth - d32).abs().mean()),
+           "conf_max": float((conf - c32).abs().max()),
+           "conf_mean": float((conf - c32).abs().mean())}
+    print("bf16 request against the fp32 request on the same weights: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in gap.items()), flush=True)
+    del d32, c32
+    layers = layer_breakdown(torch, m16, fn16, request)
+    print("bf16 layers (device ms, one request): " + json.dumps(
+        {k: round(v, 3) for k, v in layers.items()}))
+    busy_ms, wall_ms, top = device_busy(torch, fn16, request)
+    if busy_ms is None:
+        print(f"bf16 profiled request: {wall_ms:.2f} ms wall; device busy share not measured "
+              f"(the profiler saw no device events)")
+    else:
+        print(f"bf16 profiled request: {wall_ms:.2f} ms wall, {busy_ms:.2f} ms of kernels, "
+              f"device idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} [{card}]")
+        for name, t in top:
+            print(f"  {t:9.3f} ms  {name[:110]}")
+
+    # 15b. The outputs; every kernel at every launch of one bf16 request
+    # against its plain version (the islands on their inputs cast up, before
+    # the output cast), and each island's casts.
+    recorded, (depth, conf, _) = record_calls(torch, specs, fn16, *request)
+    print("bf16 " + check_outputs(torch, depth, conf, recorded["depth_decode"],
+                                  specs["depth_decode"]["kernel"]))
+    for name, calls in recorded.items():
+        if len(calls) != specs[name]["per_request"]:
+            raise RuntimeError(f"bf16 {name}: recorded {len(calls)} calls, "
+                               f"want {specs[name]['per_request']}")
+        first = {calls[0][0][0].dtype}
+        want = {bf16} if name in ISLANDS else {torch.float32}
+        if {c[0][0].dtype for c in calls} != want or (name not in ISLANDS and any(
+                t.dtype != torch.float32 for c in calls
+                for t in tensors_of(c[0]) if t.is_floating_point())):
+            raise RuntimeError(f"bf16 {name}: inputs {first}, want {want}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, islands = {}, {}
+    for name, calls in recorded.items():
+        spec = specs[name]
+        rows[name] = [check_kernel(torch, card, name, spec, "bf16 " + call_label(name, i, args),
+                                   cuda_build.up_cast(args), kwargs)
+                      for i, (args, kwargs) in enumerate(calls)]
+        if name not in ISLANDS:
+            continue
+        casts = [island_casts(torch, name, spec, args, kwargs) for args, kwargs in calls]
+        b16 = [bf16_bound_ms(r["bytes"], r["tensor_macs"]) for r in rows[name]]
+        islands[name] = {"launches": len(calls), "up_ms": sum(c[0] for c in casts),
+                         "down_ms": sum(c[1] for c in casts),
+                         "kernel_ms": sum(r["ms"] for r in rows[name]),
+                         "bound_ms": sum(r["bound_ms"] for r in rows[name]),
+                         "bf16_bound_ms": sum(b[0] for b in b16),
+                         "bf16_bound_by": max(("bytes", "operations"), key=lambda k: sum(
+                             b[0] for b in b16 if b[1] == k))}
+        i = islands[name]
+        print(f"bf16 island {name}: {i['launches']} launches a request; casts up "
+              f"{i['up_ms']:.4f} ms, down {i['down_ms']:.4f} ms; the fp32 kernel "
+              f"{i['kernel_ms']:.4f} ms (bound {i['bound_ms']:.4f}); a bf16 body's bound "
+              f"{i['bf16_bound_ms']:.4f} ms "
+              f"({i['bf16_bound_by']}) [{card}]", flush=True)
+    del recorded
+
+    # 15c. The __graft_entry__ request: the card's bf16 forward against the
+    # CPU's, within BF16_MULT times the CPU's own bf16-vs-fp32 gap.
+    cpu16, cpu32 = copy.deepcopy(m16).cpu(), copy.deepcopy(m32).cpu()
+    got = make_infer_fn(m16)(*synthetic_request(torch, *E2E_SHAPE, device=device))
+    want = make_infer_fn(cpu16)(*synthetic_request(torch, *E2E_SHAPE, device="cpu"))
+    ref = make_infer_fn(cpu32)(*synthetic_request(torch, *E2E_SHAPE, device="cpu"))
+    del cpu16, cpu32
+    checks = [bf16_gap_check(got[0], want[0], ref[0], E2E_DEPTH_ATOL, "refined_depth"),
+              bf16_gap_check(got[1], want[1], ref[1], E2E_CONF_ATOL, "photometric_confidence")]
+    checks += [bf16_gap_check(g, w, r, E2E_CONF_ATOL, f"stage{i + 1}_confidence")
+               for i, (g, w, r) in enumerate(zip(got[2], want[2], ref[2]))]
+    e2e_ok = all(ok for ok, _ in checks) and bool(torch.isfinite(got[0]).all())
+    print(f"bf16 request {E2E_SHAPE} on the card against the CPU (bound {BF16_MULT:g} x the "
+          f"CPU's bf16-vs-fp32 gap in the mean, {BF16_MAX_MULT:g} x at the max, + depth "
+          f"{E2E_DEPTH_ATOL:g} / confidence {E2E_CONF_ATOL:g}): " + "; ".join(t for _, t in checks)
+          + (" ok" if e2e_ok else " FAILED"), flush=True)
+    if not e2e_ok:
+        raise RuntimeError("the bf16 forward on the card disagrees with the CPU's")
+    del m16, m32, fn16, fn32, request, depth, conf, got
+    torch.cuda.empty_cache()
+
+    # 15d. DINOMVSNet (-p) in bf16: the DTU request, launches as phase 13's.
+    here = os.path.dirname(os.path.abspath(__file__))
+    arch = load_config(os.path.join(here, DINO_CONFIG)).arch
+    dspecs = {n: dict(s, per_request=0 if n == "gsa_attention" else s["per_request"])
+              for n, s in specs.items()}
+    dino = build_model(arch, device=device, dtype=bf16)
+    random_init_(dino, torch.Generator().manual_seed(0))
+    dfn = make_infer_fn(dino)
+    request = synthetic_request(torch, B, V, H, W, device=device)
+    dfn(*request)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dtimes, dlaunches = [], None
+    for _ in range(N_REQUESTS):
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, _ = dfn(*request)
+        torch.cuda.synchronize()
+        dtimes.append(time.perf_counter() - t0)
+        counts = dict(cuda_build.LAUNCHES)
+        for name, spec in dspecs.items():
+            if counts.get(name, 0) != spec["per_request"]:
+                raise RuntimeError(f"bf16 DINO {name}: {counts.get(name, 0)} launches in a "
+                                   f"request, want {spec['per_request']}")
+        dlaunches = dlaunches or counts
+    dpeak_gb = torch.cuda.max_memory_allocated() / 1e9
+    dmean = sum(dtimes) / len(dtimes)
+    drecorded, _ = record_calls(torch, {"depth_decode": dspecs["depth_decode"]}, dfn, *request)
+    print("bf16 DINO " + check_outputs(torch, depth, conf, drecorded["depth_decode"],
+                                       specs["depth_decode"]["kernel"]))
+    print(f"bf16 DINO launches per request, the same in each of {N_REQUESTS}: {dlaunches}; "
+          "requests " + ", ".join(f"{t * 1e3:.2f}" for t in dtimes)
+          + f" ms; mean {dmean * 1e3:.2f} ms, peak memory {dpeak_gb:.3f} GB [{card}]",
+          flush=True)
+    del dino, dfn, request, depth, conf, drecorded
+    torch.cuda.empty_cache()
+
+    # 15e. The bf16 training step at phase 8's shape.
+    cfg = Config()
+    sbm = cfg.data.multi_scale_args.scale_batch_map
+    if cfg.data.batch_size != TRAIN_B or int(sbm[str(TRAIN_H)]) != TRAIN_MICRO:
+        raise RuntimeError("the default DataConfig no longer gives the training shape")
+    n_micro = TRAIN_B // TRAIN_MICRO
+    per_step = {n: len(cfg.arch.ndepths) * n_micro for n in TRAIN_PER_MICRO}
+    model = build_model(cfg.arch, device=device, train=True, dtype=bf16)
+    random_init_(model, torch.Generator().manual_seed(1))
+    step = TrainStep(model, cfg, seed=0)
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_times, metrics, step_launches, agree = [], [], None, {}
+    hooks = entropy_agreement_hooks(torch, model, TRAIN_V - 1, agree)
+    try:
+        for _ in range(N_STEPS):
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            metrics.append(step(batch))
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            counts = dict(cuda_build.LAUNCHES)
+            if counts != per_step:
+                raise RuntimeError(f"bf16 training step launches {counts}, want {per_step}")
+            step_launches = step_launches or counts
+    finally:
+        for h in hooks:
+            h.remove()
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_step = sum(step_times) / len(step_times)
+    if not all(math.isfinite(v) for m in metrics for k, v in m.items() if k.startswith("loss")):
+        raise RuntimeError("non-finite bf16 training loss")
+    agreement = {f"stage{i + 1}": [min(s), max(s)] for i, s in sorted(agree.items())}
+    bad = bad_gradients(torch, model, zero_ok=vis_noise_only(model, agree))
+    zero = zero_gradients(torch, model)
+    not_f32 = [n for n, p in model.named_parameters() if p.dtype != torch.float32]
+    not_f32 += [n for n, b in model.named_buffers() if b.is_floating_point()
+                and b.dtype != torch.float32]
+    moments = [t for st in step.optimizer.state.values() for t in st.values()
+               if torch.is_tensor(t) and t.dim() > 0]
+    if bad or not_f32 or not moments or any(t.dtype != torch.float32 for t in moments):
+        raise RuntimeError(f"bf16 training: bad gradients {bad[:8]}, tensors not fp32 "
+                           f"{not_f32[:8]}")
+    print(f"bf16 training ({TRAIN_B} as {n_micro} micro-batches of {TRAIN_MICRO}, {TRAIN_V} "
+          f"views, {TRAIN_H}x{TRAIN_W}, {NDEPTH_FULL} depths): steps "
+          + ", ".join(f"{t * 1e3:.2f}" for t in step_times)
+          + f" ms; mean {mean_step * 1e3:.2f} ms, {1 / mean_step:.4f} train-steps/s, peak "
+          f"memory {train_peak_gb:.2f} GB; launches per step {step_launches}; loss "
+          f"{metrics[-1]['loss']:.5f}; {len(grads_of(model))} trainable gradients finite and "
+          f"fp32, and non-zero but {zero} (zero in exact arithmetic, or a visibility CNN's "
+          f"noise where its views' bf16 entropy maps agree at this share of pixels, min and "
+          f"max over the micro-batches: {agreement}); parameters, buffers and {len(moments)} AdamW "
+          f"moments fp32 [{card}]", flush=True)
+    del model, step, batch
+    torch.cuda.empty_cache()
+
+    # 15f. One bf16 step on the card against the CPU at phase 10's shape,
+    # within BF16_MULT times the CPU's own bf16-vs-fp32 gap; the three steps
+    # see the CPU bf16 step's hypotheses at every stage (`pinned_schedules`).
+    sb, sv, sh, sw = STEP_SHAPE
+    small = Config()
+    small.arch.vit_args.drop_path_rate = 0.0
+    small.optimizer.warmup_steps = 0
+    small.data.multi_scale_args.scale_batch_map = {str(sh): 1}
+    cpu16 = build_model(small.arch, device="cpu", train=True, dtype=bf16)
+    random_init_(cpu16, torch.Generator().manual_seed(2))
+    cpu32 = build_model(small.arch, device="cpu", train=True)
+    cpu32.load_state_dict(cpu16.state_dict())
+    card16 = copy.deepcopy(cpu16).to(device)
+    t0 = time.perf_counter()
+    step_metrics, samples = {}, []
+    # On an H100 host's CPU oneDNN's bf16 Conv3d weight gradient is not
+    # deterministic and often not finite at stage 2's 2x4x4 bottleneck
+    # (`python -m mvsformer_torch.bf16_cpu_check`), so the CPU bf16 step
+    # runs PyTorch's own kernels.
+    for key, mdl, dev in (("cpu16", cpu16, "cpu"), ("cpu32", cpu32, "cpu"),
+                          ("card", card16, device)):
+        with pinned_schedules(samples), torch.backends.mkldnn.flags(enabled=key != "cpu16"):
+            step_metrics[key] = TrainStep(mdl, small, seed=0)(
+                synthetic_batch(torch, sb, sv, sh, sw, device=dev, with_gt=True))
+    keys = ["loss"] + [k for k in step_metrics["cpu16"] if k.startswith("loss_")]
+    loss = {k: torch.tensor([step_metrics[k][n] for n in keys], dtype=torch.float64)
+            for k in step_metrics}
+    rms = lambda x: float(x.pow(2).mean().sqrt())
+    loss_err, loss_gap = rms(loss["card"] - loss["cpu16"]), rms(loss["cpu16"] - loss["cpu32"])
+    ok = loss_err <= BF16_MAX_MULT * loss_gap + 1e-6 * abs(float(loss["cpu32"][0]))
+    lines = [f"losses' RMS {loss_err:.3e} (gap {loss_gap:.3e})"]
+    step_errs = {"loss_rms": loss_err, "loss_rms_gap": loss_gap}
+    names = [n for n, p in cpu16.named_parameters() if p.requires_grad]
+    passed_mutants = []
+    for group in STEP_GROUPS:
+        members = [n for n in names if n == group or n.startswith(group + ".")]
+        g_card, g16, g32 = (group_l2(torch, mdl, members).double().numpy()
+                            for mdl in (card16, cpu16, cpu32))
+        group_ok, r = grad_group_check(g_card, g16, g32)
+        step_errs[group] = r
+        ok = ok and group_ok
+        passed_mutants += [f"{group} {k}" for k, g in grad_mutants(g_card).items()
+                           if grad_group_check(g, g16, g32)[0]]
+        lines.append(f"{group} L2 {r['err']:.3f} (gap {r['gap']:.3f}), cosine {r['cos']:.4f} "
+                     f"(gap {r['cos_gap']:.4f}), norm ratio {r['norm']:.4f} (gap "
+                     f"{r['norm_gap']:.4f})")
+    stats = [n for n, _ in cpu16.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    bufs = [dict(m.named_buffers()) for m in (card16, cpu16, cpu32)]
+    cat = [torch.cat([b[n].float().cpu().reshape(-1) for n in stats]) for b in bufs]
+    stats_ok, stats_text = bf16_gap_check(cat[0], cat[1], cat[2], 1e-6, "running stats")
+    ok = ok and stats_ok and not passed_mutants
+    print(f"bf16 training step {STEP_SHAPE} on the card against the CPU, the hypotheses "
+          f"pinned ({time.perf_counter() - t0:.1f} s; bounds per group: relative L2 "
+          f"{BF16_MULT:g} x the CPU's bf16-vs-fp32 gap + {BF16_GRAD_FLOOR:g} and at most "
+          f"{BF16_GRAD_L2_MAX:g}, 1 - cosine {BF16_MULT:g} x the gap's + {BF16_GRAD_FLOOR:g}, "
+          f"the norm ratio's distance from 1 {BF16_MULT:g} x the gap's + {BF16_NORM_FLOOR:g}, "
+          f"a gap at most {BF16_GRAD_GAP_MAX:g}; {BF16_MAX_MULT:g} x + 1e-6 in the losses' RMS; "
+          f"the running stats' mean {BF16_MULT:g} x and max {BF16_MAX_MULT:g} x, + 1e-6): "
+          + "; ".join(lines) + f"; {stats_text}; the bounds reject zero, random, negated, "
+          f"half and 1.5 x card gradients in every group: "
+          + (f"no, {passed_mutants}" if passed_mutants else "yes") + " "
+          + ("ok" if ok else "FAILED"), flush=True)
+    if not ok:
+        raise RuntimeError("the bf16 training step on the card disagrees with the CPU's")
+    step_errs["running_stats"] = stats_text
+    del card16, cpu16, cpu32
+    torch.cuda.empty_cache()
+
+    total = dict(launches)
+    for counts in (dlaunches, step_launches):
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+    details = {
+        "request_ms": [t * 1e3 for t in times], "depth_maps_per_s": B / mean_s,
+        "peak_memory_gb": peak_gb, "launches": launches, "gap_to_fp32": gap,
+        "layers_ms": layers, "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms,
+        "top_kernels": top, "islands": islands, "e2e_small": [t for _, t in checks],
+        "dino_request_ms": [t * 1e3 for t in dtimes], "dino_peak_memory_gb": dpeak_gb,
+        "dino_launches": dlaunches, "step_ms": [t * 1e3 for t in step_times],
+        "train_steps_per_s": 1 / mean_step, "train_peak_memory_gb": train_peak_gb,
+        "step_launches": step_launches, "metrics": metrics, "zero_gradients": zero,
+        "entropy_agreement": agreement, "card_vs_cpu_step": step_errs,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 15 (bf16): {details['phase_s']:.1f} s", flush=True)
     return {"rows": rows, "launches": total, "details": details}
 
 
@@ -2736,11 +3320,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     variants = variants_phase(torch, card, specs)
 
+    # 15. The bf16 mode: both models served and TwinMVSNet trained.
+    torch.cuda.empty_cache()
+    bf16 = bf16_phase(torch, card, specs)
+
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino, variants):
+    for phase in (run, dino, variants, bf16):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -2766,6 +3354,7 @@ def main() -> int:
         "dino": dict(dino["details"], rows=dino["rows"], launches=dino["launches"]),
         "variants": dict(variants["details"], rows=variants["rows"],
                          launches=variants["launches"]),
+        "bf16": dict(bf16["details"], rows=bf16["rows"], launches=bf16["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -6,6 +6,18 @@ padding and output_padding, so the outputs are exact 2x upsamples. Every
 block takes the model's `norm_type` (`make_norm`). Module attribute names
 are the reference checkpoint's (`conv`/`bn`, or the `Sequential` indices)
 whatever the norm, which is what the weight bridge maps.
+
+The compute dtype follows the activations, as flax's `dtype` sets it for
+the JAX modules: the layers here (`Conv2d`, `Conv3d`, `ConvTranspose2d`,
+`ConvTranspose3d`, `Linear`) cast their weights to their input's dtype
+where they use them, so a bf16 activation runs a bf16 convolution or
+matmul with fp32 accumulation, while parameters, their gradients, the
+optimizer's state and checkpoints stay fp32. The norms are fp32 islands:
+`LayerNorm`, `GroupNorm` and the training `FoldedBatchNorm` normalise in
+fp32 and return their input's dtype, and the eval `FoldedBatchNorm` folds
+in fp32 and applies the affine in the input's dtype, as the JAX package's
+eval BN does. With fp32 (or float64) activations every cast is the
+identity, so those paths are unchanged.
 """
 
 from __future__ import annotations
@@ -13,6 +25,55 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def like(t, x):
+    """The parameter `t` (or None) in the dtype of the activation `x`."""
+    return None if t is None else t.to(x.dtype)
+
+
+def f32(x):
+    """`x` in at least fp32: bf16 goes up, fp32 and float64 stay."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x):
+        return self._conv_forward(x, like(self.weight, x), like(self.bias, x))
+
+
+class Conv3d(nn.Conv3d):
+    def forward(self, x):
+        return self._conv_forward(x, like(self.weight, x), like(self.bias, x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x):
+        return F.conv_transpose2d(x, like(self.weight, x), like(self.bias, x), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    def forward(self, x):
+        return F.conv_transpose3d(x, like(self.weight, x), like(self.bias, x), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class Linear(nn.Linear):
+    def forward(self, x):
+        return F.linear(x, like(self.weight, x), like(self.bias, x))
+
+
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x):
+        return F.layer_norm(f32(x), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    def forward(self, x):
+        return F.group_norm(f32(x), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def swish(x):
@@ -58,8 +119,8 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
             # Copies go into the op: autograd keeps its inputs, and the
             # buffers change again below and at the next call.
             mean, var = self.running_mean.clone(), self.running_var.clone()
-            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, self.momentum,
-                             self.eps)
+            y = F.batch_norm(f32(x), mean, var, self.weight, self.bias, True, self.momentum,
+                             self.eps).to(x.dtype)
             with torch.no_grad():
                 n = x.numel() // x.shape[1]
                 kept = self.running_var * (1.0 - self.momentum)
@@ -95,7 +156,7 @@ def make_norm(kind: str, channels: int) -> nn.Module:
     if kind == "BN":
         return FoldedBatchNorm(channels)
     if kind in ("GN", "IN"):
-        return nn.GroupNorm(group_count(kind, channels), channels, eps=1e-6)
+        return GroupNorm(group_count(kind, channels), channels, eps=1e-6)
     if kind == "none":
         return nn.Identity()
     raise ValueError(f"unknown norm_type {kind!r}; one of {NORMS}")
@@ -111,7 +172,7 @@ class ConvNormAct(nn.Module):
 
     def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=norm == "none")
+        self.conv = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=norm == "none")
         self.bn = make_norm(norm, cout)
 
     def forward(self, x):
@@ -123,7 +184,7 @@ class ConvBnReLU(nn.Module):
 
     def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
+        self.conv = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2, bias=False)
         self.bn = make_norm(norm, cout)
 
     def forward(self, x):
@@ -136,7 +197,7 @@ class Conv3dNormAct(nn.Module):
 
     def __init__(self, cin, cout, kernel=3, stride=1, norm="BN"):
         super().__init__()
-        self.conv = nn.Conv3d(cin, cout, kernel, stride, _pad(kernel), bias=norm == "none")
+        self.conv = Conv3d(cin, cout, kernel, stride, _pad(kernel), bias=norm == "none")
         self.bn = make_norm(norm, cout)
 
     def forward(self, x):
@@ -145,8 +206,8 @@ class Conv3dNormAct(nn.Module):
 
 def _deconv3d(cin, cout, stride):
     s = (stride,) * 3 if isinstance(stride, int) else tuple(stride)
-    return nn.ConvTranspose3d(cin, cout, 3, s, padding=1,
-                              output_padding=tuple(si - 1 for si in s), bias=False)
+    return ConvTranspose3d(cin, cout, 3, s, padding=1,
+                           output_padding=tuple(si - 1 for si in s), bias=False)
 
 
 class Deconv3dNormAct(nn.Module):
@@ -177,8 +238,8 @@ class Deconv2dIn3dSeq(nn.Sequential):
     `0`/`1`)."""
 
     def __init__(self, cin, cout, norm="BN"):
-        super().__init__(nn.ConvTranspose3d(cin, cout, (1, 3, 3), (1, 2, 2), padding=(0, 1, 1),
-                                            output_padding=(0, 1, 1), bias=False),
+        super().__init__(ConvTranspose3d(cin, cout, (1, 3, 3), (1, 2, 2), padding=(0, 1, 1),
+                                         output_padding=(0, 1, 1), bias=False),
                          make_norm(norm, cout), nn.ReLU())
 
 
@@ -186,7 +247,7 @@ class Deconv2dNormAct(nn.Sequential):
     """Transposed 2D conv (k4, s2, p1: exact 2x) + norm + activation."""
 
     def __init__(self, cin, cout, act: nn.Module, norm="BN"):
-        super().__init__(nn.ConvTranspose2d(cin, cout, 4, 2, 1, bias=False),
+        super().__init__(ConvTranspose2d(cin, cout, 4, 2, 1, bias=False),
                          make_norm(norm, cout), act)
 
 
@@ -195,5 +256,5 @@ class ConvNormSeq(nn.Sequential):
     `Sequential`."""
 
     def __init__(self, cin, cout, kernel, act: nn.Module, norm="BN"):
-        super().__init__(nn.Conv2d(cin, cout, kernel, 1, (kernel - 1) // 2),
+        super().__init__(Conv2d(cin, cout, kernel, 1, (kernel - 1) // 2),
                          make_norm(norm, cout), act)

@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch.nn as nn
 
-from mvsformer_torch.models.blocks import (Conv3dNormAct, Deconv2dIn3dSeq, Deconv3dNormAct,
-                                           Deconv3dSeq)
+from mvsformer_torch.models.blocks import (Conv3d, Conv3dNormAct, Deconv2dIn3dSeq,
+                                           Deconv3dNormAct, Deconv3dSeq)
 
 
 class CostRegNet(nn.Module):
@@ -29,8 +29,8 @@ class CostRegNet(nn.Module):
         self.conv7 = Deconv3dNormAct(c * 8, c * 4, stride=2, norm=norm)
         self.conv9 = Deconv3dNormAct(c * 4, c * 2, stride=2, norm=norm)
         self.conv11 = Deconv3dNormAct(c * 2, c, stride=2, norm=norm)
-        self.inner = nn.Conv3d(in_ch, c, 1) if in_ch != c else None
-        self.prob = nn.Conv3d(c, 1, 3, 1, 1, bias=False) if last_layer else None
+        self.inner = Conv3d(in_ch, c, 1) if in_ch != c else None
+        self.prob = Conv3d(c, 1, 3, 1, 1, bias=False) if last_layer else None
 
     def forward(self, x):
         conv2 = self.conv2(self.conv1(x))
@@ -59,8 +59,8 @@ class CostRegNet3D(nn.Module):
         self.conv7 = Deconv3dSeq(c * 8, c * 4, s, norm=norm)
         self.conv9 = Deconv3dSeq(c * 4, c * 2, s, norm=norm)
         self.conv11 = Deconv3dSeq(c * 2, c, s, norm=norm)
-        self.inner = nn.Conv3d(in_ch, c, 1) if in_ch != c else None
-        self.prob = nn.Conv3d(c, 1, 1)
+        self.inner = Conv3d(in_ch, c, 1) if in_ch != c else None
+        self.prob = Conv3d(c, 1, 1)
 
     def forward(self, x):
         conv2 = self.conv2(self.conv1(x))
@@ -93,7 +93,7 @@ class CostRegNet2D(nn.Module):
         self.conv7 = Deconv2dIn3dSeq(c * 8, c * 4, norm=norm)
         self.conv9 = Deconv2dIn3dSeq(c * 4, c * 2, norm=norm)
         self.conv11 = Deconv2dIn3dSeq(c * 2, c, norm=norm)
-        self.prob = nn.Conv3d(c, 1, 1)
+        self.prob = Conv3d(c, 1, 1)
 
     def forward(self, x):
         conv2 = self.conv2(self.conv1(x))

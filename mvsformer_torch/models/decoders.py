@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from mvsformer_torch.models.blocks import ConvNormSeq, Deconv2dNormAct, Swish, gelu_tanh
+from mvsformer_torch.models.blocks import (Conv2d, ConvNormSeq, Deconv2dNormAct, Swish,
+                                           gelu_tanh)
 from mvsformer_torch.ops.resize import resize_bilinear
 
 
@@ -26,11 +27,11 @@ class TwinDecoderStage4(nn.Module):
         super().__init__()
         ch = out_ch * 4
         self.upsampler0 = Deconv2dNormAct(vit_chs[3], ch, gelu_tanh(), norm=norm)
-        self.inner1 = nn.Conv2d(vit_chs[2], ch, 1)
+        self.inner1 = Conv2d(vit_chs[2], ch, 1)
         self.smooth1 = ConvNormSeq(ch, ch // 2, 3, nn.ReLU(), norm=norm)
-        self.inner2 = nn.Conv2d(vit_chs[1], ch // 2, 1)
+        self.inner2 = Conv2d(vit_chs[1], ch // 2, 1)
         self.smooth2 = ConvNormSeq(ch // 2, ch // 4, 3, nn.ReLU(), norm=norm)
-        self.inner3 = nn.Conv2d(vit_chs[0], ch // 4, 1)
+        self.inner3 = Conv2d(vit_chs[0], ch // 4, 1)
         self.smooth3 = ConvNormSeq(ch // 4, ch // 4, 3, Swish(), norm=norm)
 
     def forward(self, x1, x2, x3, x4):
@@ -51,7 +52,7 @@ class AttentionFusionSimple(nn.Module):
         super().__init__()
         self.conv_l = ConvNormSeq(embed_dim + heads, vit_ch, 3, Swish(), norm=norm)
         self.conv_r = ConvNormSeq(embed_dim, vit_ch, 3, Swish(), norm=norm)
-        self.proj = nn.Conv2d(vit_ch, out_ch, 1)
+        self.proj = Conv2d(vit_ch, out_ch, 1)
 
     def forward(self, x, att):
         x1 = self.conv_l(torch.cat([x, att], dim=1))

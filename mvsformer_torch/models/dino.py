@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from mvsformer_torch.config import ModelConfig
+from mvsformer_torch.models.blocks import Conv2d, LayerNorm, Linear
 from mvsformer_torch.models.decoders import VITDecoderStage4Single
 from mvsformer_torch.models.mvsformer import CascadeMVSNet
 from mvsformer_torch.models.twins import Mlp
@@ -40,7 +41,7 @@ PRESETS = {
 
 
 def _ln(dim):
-    return nn.LayerNorm(dim, eps=1e-6)
+    return LayerNorm(dim, eps=1e-6)
 
 
 class ViTAttention(nn.Module):
@@ -48,8 +49,8 @@ class ViTAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.qk_scale = qk_scale
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x):
         """x [B, N, C] -> (out [B, N, C], attention [B, heads, N, N] in fp32).
@@ -85,7 +86,7 @@ class ViTBlock(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, dim, patch):
         super().__init__()
-        self.proj = nn.Conv2d(3, dim, patch, patch)
+        self.proj = Conv2d(3, dim, patch, patch)
 
     def forward(self, x):  # [B, 3, H, W] -> [B, gh * gw, dim]
         return self.proj(x).flatten(2).transpose(1, 2)
@@ -139,8 +140,8 @@ def build_vit(arch: str, patch_size=16, qk_scale="default") -> DINOViT:
 class DINOMVSNet(CascadeMVSNet):
     always_average = True
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+        super().__init__(cfg, dtype)
         va = cfg.vit_args
         self.vit = build_vit(va.vit_arch, va.patch_size, va.qk_scale)
         vit_ch = va.vit_ch if isinstance(va.vit_ch, int) else 384
@@ -148,9 +149,10 @@ class DINOMVSNet(CascadeMVSNet):
                                                   vit_ch, va.out_ch, cfg.norm_type)
 
     def extract_features(self, imgs, generator=None):
-        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1). The
-        ViT has no drop path, so `generator` is not used."""
-        conv01, conv11, conv21, conv31 = self.encoder(imgs)
+        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1), in
+        the compute dtype. The ViT has no drop path, so `generator` is not
+        used."""
+        conv01, conv11, conv21, conv31 = self.encoder(imgs.to(self.compute_dtype))
         vit_imgs = self.vit_input(imgs)
         if self.training and self.cfg.fix:
             with torch.no_grad():

@@ -14,13 +14,17 @@ on `not training and norm == "BN"`. In training, and under GN, IN or no
 norm, the head and the levels run as the modules themselves: convs, the
 norm, the align-corners 2x resize and the 1x1 inner convs. The choice is
 made once, when the module is built, from the norm.
+
+In the bf16 mode K4 and K5 are fp32 islands: they take the bf16 maps and
+the weights in bf16, as a bf16 convolution reads them, compute in fp32
+and return bf16 (`ops/cuda_build.fp32_island`); the folded BN stays fp32.
 """
 
 from __future__ import annotations
 
 import torch.nn as nn
 
-from mvsformer_torch.models.blocks import ConvNormAct, ConvNormSeq, Swish
+from mvsformer_torch.models.blocks import Conv2d, ConvNormAct, ConvNormSeq, Swish, like
 from mvsformer_torch.ops.encoder_head import encoder_head
 from mvsformer_torch.ops.fpn_level import fpn_level
 from mvsformer_torch.ops.resize import resize_bilinear
@@ -50,9 +54,9 @@ class FPNEncoder(nn.Module):
             down0 = self.downsample1(conv01)
         else:
             conv01, down0 = encoder_head(
-                x, self.conv00.conv.weight, self.conv00.bn.folded(),
-                self.conv01.conv.weight, self.conv01.bn.folded(),
-                self.downsample1.conv.weight, self.downsample1.bn.folded())
+                x, like(self.conv00.conv.weight, x), self.conv00.bn.folded(),
+                like(self.conv01.conv.weight, x), self.conv01.bn.folded(),
+                like(self.downsample1.conv.weight, x), self.downsample1.bn.folded())
         conv11 = self.conv11(self.conv10(down0))
         conv21 = self.conv21(self.conv20(self.downsample2(conv11)))
         conv31 = self.conv31(self.conv30(self.downsample3(conv21)))
@@ -68,11 +72,11 @@ class FPNDecoder(nn.Module):
         final = ch[-1]
         self.kernel = norm == "BN"  # K5 runs each level in eval
         self.out0 = ConvNormSeq(ch[3], ch[3], 1, Swish(), norm=norm)
-        self.inner1 = nn.Conv2d(ch[2], final, 1)
+        self.inner1 = Conv2d(ch[2], final, 1)
         self.out1 = ConvNormSeq(final, ch[2], 3, Swish(), norm=norm)
-        self.inner2 = nn.Conv2d(ch[1], final, 1)
+        self.inner2 = Conv2d(ch[1], final, 1)
         self.out2 = ConvNormSeq(final, ch[1], 3, Swish(), norm=norm)
-        self.inner3 = nn.Conv2d(ch[0], final, 1)
+        self.inner3 = Conv2d(ch[0], final, 1)
         self.out3 = ConvNormSeq(final, ch[0], 3, Swish(), norm=norm)
 
     def _level(self, i, intra, lateral, emit_intra):
@@ -81,8 +85,9 @@ class FPNDecoder(nn.Module):
             h, w = intra.shape[-2:]
             intra = resize_bilinear(intra, (2 * h, 2 * w), align_corners=True) + inner(lateral)
             return (out(intra), intra) if emit_intra else out(intra)
-        return fpn_level(intra, lateral, inner.weight, inner.bias, out[0].weight,
-                         out[0].bias, out[1].folded(), emit_intra=emit_intra)
+        return fpn_level(intra, lateral, *(like(t, intra) for t in (
+            inner.weight, inner.bias, out[0].weight, out[0].bias)), out[1].folded(),
+            emit_intra=emit_intra)
 
     def forward(self, conv01, conv11, conv21, conv31):
         out0 = self.out0(conv31)

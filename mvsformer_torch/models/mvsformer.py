@@ -14,6 +14,16 @@ features are extracted over chunks of that many views, as the JAX
 H, W, 3], projections {stageK: [B, V, 2, 4, 4]}, depth_values [B,
 Dfull]. Inside, maps are NCHW.
 
+The model's compute dtype (`build_model`'s `dtype`, fp32 by default) is the
+JAX `build_model`'s `dtype`: in bf16 the images enter the FPN encoder and
+(after the bicubic rescale, in fp32) the backbone in bf16, and every
+convolution, matmul and activation follows them in bf16 with fp32
+parameters, down to the features the stages read; the stages keep the
+JAX package's fp32 islands (`models/stagenet.py`), and the confidences,
+their average and every output are fp32. No autocast: the casts are
+explicit in the modules (`models/blocks.py`), so the CPU runs the same
+casts as the card.
+
 The forward follows `self.training`, as the JAX model follows its
 `training` argument: batch-statistics BN, stochastic depth in the backbone
 (drawn from the caller's generator), and each stage's training warp and
@@ -38,6 +48,7 @@ from mvsformer_torch.ops import hypotheses
 from mvsformer_torch.ops.resize import resize_bicubic, resize_nearest
 
 STAGE_SCALES = (8, 4, 2, 1)  # stage1..stage4 feature-map downscale factors
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class CascadeMVSNet(nn.Module):
@@ -49,9 +60,12 @@ class CascadeMVSNet(nn.Module):
 
     always_average = False
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
+        if dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute dtype {dtype}: one of {COMPUTE_DTYPES}")
         self.cfg = cfg
+        self._bf16 = dtype == torch.bfloat16
         feat_chs = tuple(cfg.feat_chs)
         self.encoder = FPNEncoder(feat_chs, cfg.norm_type)
         self.decoder = FPNDecoder(feat_chs, cfg.norm_type)
@@ -59,11 +73,18 @@ class CascadeMVSNet(nn.Module):
             StageNet(nd, cfg.base_ch, cfg.model_th, cfg.fusion_type, cfg.depth_type,
                      cfg.norm_type, cfg.attn_temp) for nd in cfg.ndepths)
 
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """bf16 in the bf16 mode; otherwise the parameters' dtype (fp32, or
+        float64 for a model made `.double()`)."""
+        return torch.bfloat16 if self._bf16 else self.encoder.conv00.conv.weight.dtype
+
     def vit_input(self, imgs):
-        """The images bicubically rescaled by `vit_args.rescale`, in fp32."""
+        """The images bicubically rescaled by `vit_args.rescale` in fp32,
+        then in the compute dtype."""
         vit_h = int(imgs.shape[2] * self.cfg.vit_args.rescale)
         vit_w = int(imgs.shape[3] * self.cfg.vit_args.rescale)
-        return resize_bicubic(imgs.float(), (vit_h, vit_w)).to(imgs.dtype)
+        return resize_bicubic(imgs.float(), (vit_h, vit_w)).to(self.compute_dtype)
 
     def forward(self, imgs, proj_matrices, depth_values, tmp=2.0, generator=None):
         """imgs [B, V, H, W, 3]; proj_matrices {stageK: [B, V, 2, 4, 4]};
@@ -71,9 +92,10 @@ class CascadeMVSNet(nn.Module):
         generator: the torch.Generator that drop path draws from in training
         (on the model's device; None takes the default one).
 
-        The model is fp32, so its convolutions and matmuls run in full fp32:
-        TF32 is off for the forward and the caller's setting is restored.
-        A training step also runs its backward under `fp32_math`."""
+        The fp32 work (all of it in fp32 mode; the islands in bf16 mode)
+        runs in full fp32: TF32 is off for the forward and the caller's
+        setting is restored. A training step also runs its backward under
+        `fp32_math`."""
         with fp32_math():
             return self._forward(imgs, proj_matrices, depth_values, tmp, generator)
 
@@ -141,15 +163,16 @@ class CascadeMVSNet(nn.Module):
 
 
 class TwinMVSNet(CascadeMVSNet):
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+        super().__init__(cfg, dtype)
         self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
         self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
                                              cfg.vit_args.out_ch, cfg.norm_type)
 
     def extract_features(self, imgs, generator=None):
-        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1)."""
-        conv01, conv11, conv21, conv31 = self.encoder(imgs)
+        """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1), in
+        the compute dtype."""
+        conv01, conv11, conv21, conv31 = self.encoder(imgs.to(self.compute_dtype))
         vit_imgs = self.vit_input(imgs)
         if self.training and self.cfg.fix:
             with torch.no_grad():
@@ -163,12 +186,15 @@ class TwinMVSNet(CascadeMVSNet):
 DEPTH_TYPES = ("ce", "re", "was", "mixup_ce")
 
 
-def build_model(cfg: ModelConfig, device=None, train: bool = False) -> CascadeMVSNet:
+def build_model(cfg: ModelConfig, device=None, train: bool = False,
+                dtype=torch.float32) -> CascadeMVSNet:
     """TwinMVSNet (`model_type` "twin") or DINOMVSNet ("dino") on `device`
     (`cuda` unless the caller asks for the CPU; raises if CUDA is asked for
-    and absent), in eval mode, or in training mode with `train=True`.
-    Raises NotImplementedError for parts of the configuration that later
-    slices port, ValueError for values no model has."""
+    and absent), in eval mode, or in training mode with `train=True`, with
+    fp32 parameters computing in `dtype`: torch.float32 or torch.bfloat16
+    (the JAX package's bf16 mode, with its fp32 islands). Raises
+    NotImplementedError for parts of the configuration that later slices
+    port, ValueError for values no model has."""
     dev = resolve_device(device)
     va, dino = cfg.vit_args, cfg.model_type == "dino"
     unsupported = {
@@ -186,8 +212,8 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False) -> CascadeMV
     if dino:
         from mvsformer_torch.models.dino import DINOMVSNet
 
-        return DINOMVSNet(cfg).to(dev).train(train)
-    return TwinMVSNet(cfg).to(dev).train(train)
+        return DINOMVSNet(cfg, dtype).to(dev).train(train)
+    return TwinMVSNet(cfg, dtype).to(dev).train(train)
 
 
 @torch.no_grad()

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from mvsformer_torch.models.blocks import ConvBnReLU
+from mvsformer_torch.models.blocks import Conv2d, ConvBnReLU, like
 from mvsformer_torch.models.costreg import CostRegNet, CostRegNet2D, CostRegNet3D
 from mvsformer_torch.ops import geometry, regression
 from mvsformer_torch.ops.correlation import (entropy_over_depth, epipole_v2_weight,
@@ -52,20 +52,22 @@ class VisibilityNet(nn.Sequential):
 
     def __init__(self, norm="BN"):
         super().__init__(ConvBnReLU(1, 16, norm=norm), ConvBnReLU(16, 16, norm=norm),
-                         ConvBnReLU(16, 8, norm=norm), nn.Conv2d(8, 1, 1))
+                         ConvBnReLU(16, 8, norm=norm), Conv2d(8, 1, 1))
         self.kernel = norm == "BN"  # K2 runs the eval forward
 
     def forward(self, ent):
-        """ent [N, H, W] -> weight [N, H, W]: K2 with folded BN in eval, the
-        layers (batch-statistics BN in training) otherwise."""
+        """ent [N, H, W] in the compute dtype -> weight [N, H, W] in fp32 (the
+        sigmoid is an fp32 island): K2 with folded BN in eval, the layers
+        (batch-statistics BN in training) otherwise."""
         if self.training or not self.kernel:
-            x = ent[:, None].to(self[3].weight.dtype)
+            x = ent[:, None]
             for i in range(3):
                 x = self[i](x)
             return torch.sigmoid(self[3](x).float())[:, 0]
         folds = [self[i].bn.folded() for i in range(3)]
-        return visibility_net(ent, self[0].conv.weight, self[1].conv.weight,
-                              self[2].conv.weight, self[3].weight, self[3].bias, folds)
+        return visibility_net(ent, *(like(w, ent) for w in (
+            self[0].conv.weight, self[1].conv.weight, self[2].conv.weight, self[3].weight,
+            self[3].bias)), folds)
 
 
 class StageNet(nn.Module):
@@ -91,18 +93,19 @@ class StageNet(nn.Module):
         else:
             self.cost_reg = CostRegNet(base_ch, base_ch, norm=norm)
 
-    def view_weights(self, corr, ent, channels, src_full, ref_full, dv):
+    def view_weights(self, corr, ent, channels, src_full, ref_full, dv, dt):
         """corr [B, Vs, G, D, H, W] (ent [B, Vs, H, W], read by cnn fusion
-        in eval; `channels` the features', read by epipole) -> weights
+        in eval; `channels` the features', read by epipole) -> fp32 weights
         [B, Vs, 1, 1 or D, H, W] that broadcast over a view's
-        correlation."""
+        correlation. The visibility CNN reads the entropy in the compute
+        dtype `dt`."""
         B, Vs, G, D, H, W = corr.shape
         if self.fusion_type == "cnn":
             if self.training:
                 w = torch.stack([self.vis(entropy_over_depth(corr[:, v].permute(0, 2, 3, 4, 1))
-                                          [..., 0]) for v in range(Vs)], 1)
+                                          [..., 0].to(dt)) for v in range(Vs)], 1)
             else:
-                w = self.vis(ent.reshape(B * Vs, H, W)).reshape(B, Vs, H, W)
+                w = self.vis(ent.reshape(B * Vs, H, W).to(dt)).reshape(B, Vs, H, W)
             return w[:, :, None, None]
         views = [corr[:, v].permute(0, 2, 3, 4, 1) for v in range(Vs)]  # [B, D, H, W, G]
         if self.fusion_type == "epipole":
@@ -115,10 +118,19 @@ class StageNet(nn.Module):
         return torch.stack(w, 1)[:, :, None]
 
     def forward(self, ref_feat, src_feats, ref_proj, src_projs, depth_values, tmp: float):
-        """ref_feat [B,C,H,W]; src_feats [B,Vs,C,H,W]; ref_proj [B,2,4,4];
-        src_projs [B,Vs,2,4,4]; depth_values [B,D,H,W] -> stage outputs."""
+        """ref_feat [B,C,H,W]; src_feats [B,Vs,C,H,W] in the compute dtype;
+        ref_proj [B,2,4,4]; src_projs [B,Vs,2,4,4]; depth_values [B,D,H,W]
+        -> stage outputs.
+
+        The fp32 islands of the bf16 mode, as the JAX StageNet keeps them:
+        the projections, the hypotheses and the features the warp reads
+        (K1, K7/K8), the correlation and the entropy, the view weights and
+        the weighted view sum, and from the cost regulariser's logits on
+        the decode. The visibility CNN and the cost regulariser compute in
+        the features' dtype."""
         B, C, H, W = ref_feat.shape
         G = self.base_ch
+        dt = ref_feat.dtype
         dv = depth_values.float().contiguous()
         ref_full = geometry.compose_projection(ref_proj.float())
         src_full = geometry.compose_projection(src_projs.float())
@@ -129,7 +141,7 @@ class StageNet(nn.Module):
             corr, ent = WarpCorrTrain.apply(ref_cl, src_cl, src_full, ref_full, dv, G), None
         else:
             corr, ent = warp_group_corr(ref_cl, src_cl, src_full, ref_full, dv, groups=G)
-        w = self.view_weights(corr, ent, C, src_full, ref_full, dv)
+        w = self.view_weights(corr, ent, C, src_full, ref_full, dv, dt)
 
         # Weighted view mean, accumulated view by view in the reference's order.
         volume_sum = corr[:, 0] * w[:, 0]
@@ -138,7 +150,7 @@ class StageNet(nn.Module):
         del corr
         volume_mean = volume_sum / (w.sum(dim=1) + 1e-6)
 
-        logits = self.cost_reg(volume_mean.to(ref_feat.dtype))[:, 0].float().contiguous()
+        logits = self.cost_reg(volume_mean.to(dt))[:, 0].float().contiguous()
         if self.training or self.depth_type not in ("ce", "was"):
             depth, conf = regression.decode_depth(logits, dv, self.depth_type, tmp,
                                                   training=self.training)

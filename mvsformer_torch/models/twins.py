@@ -21,12 +21,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mvsformer_torch.models.blocks import gelu_tanh
+from mvsformer_torch.models.blocks import Conv2d, LayerNorm, Linear, gelu_tanh
 from mvsformer_torch.ops.gsa_attention import gsa_attention, gsa_attention_plain
 
 
 def _ln(dim):
-    return nn.LayerNorm(dim, eps=1e-6)
+    return LayerNorm(dim, eps=1e-6)
 
 
 def _nchw(x):
@@ -51,9 +51,9 @@ def drop_path(x, rate: float, generator=None):
 class Mlp(nn.Module):
     def __init__(self, dim, hidden):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
+        self.fc1 = Linear(dim, hidden)
         self.act = gelu_tanh()
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(self.act(self.fc1(x)))
@@ -66,8 +66,8 @@ class GroupAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.ws = ws
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x):  # [B, H, W, C]
         B, H, W, C = x.shape
@@ -107,11 +107,11 @@ class GlobalSubsampledAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
-        self.q = nn.Linear(dim, dim)
-        self.kv = nn.Linear(dim, dim * 2)
-        self.proj = nn.Linear(dim, dim)
+        self.q = Linear(dim, dim)
+        self.kv = Linear(dim, dim * 2)
+        self.proj = Linear(dim, dim)
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.sr = Conv2d(dim, dim, sr_ratio, sr_ratio)
             self.norm = _ln(dim)
 
     def forward(self, x, deterministic: bool = True):  # [B, H, W, C]
@@ -131,7 +131,7 @@ class PosCNN(nn.Module):
 
     def __init__(self, dim):
         super().__init__()
-        self.proj = nn.Sequential(nn.Conv2d(dim, dim, 3, 1, 1, groups=dim))
+        self.proj = nn.Sequential(Conv2d(dim, dim, 3, 1, 1, groups=dim))
 
     def forward(self, x):  # [B, H, W, C]
         return _nhwc(self.proj(_nchw(x))) + x
@@ -162,7 +162,7 @@ class TwinsBlock(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, cin, dim, patch):
         super().__init__()
-        self.proj = nn.Conv2d(cin, dim, patch, patch)
+        self.proj = Conv2d(cin, dim, patch, patch)
         self.norm = _ln(dim)
 
     def forward(self, x):  # NCHW -> [B, H/p, W/p, dim]

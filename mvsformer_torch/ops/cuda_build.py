@@ -10,12 +10,16 @@ with ctypes. `build()` compiles every source at once, one `nvcc` each.
 `LAUNCHES` counts kernel launches by wrapper name: each wrapper adds one
 right after a launch that returned success, and nowhere else, so a run can
 show which kernels its main path went through.
+
+Every kernel takes fp32. `fp32_island` lets a wrapper take bf16 too: the
+bf16 mode's islands around K2, K4, K5 and K6.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -179,3 +183,35 @@ def check_f32_contiguous(what: str, **tensors) -> None:
             raise TypeError(f"{what}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {key} must be contiguous")
+
+
+def _map_tensors(fn, x):
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(fn, t) for t in x)
+    return x
+
+
+def up_cast(x):
+    """`x` with every bf16 tensor in it (nested in tuples and lists too)
+    cast to fp32, which holds each bf16 value exactly; the rest as it is."""
+    return _map_tensors(lambda t: t.float() if t.dtype == torch.bfloat16 else t, x)
+
+
+def fp32_island(out_dtype=None):
+    """Decorate an fp32 kernel wrapper so that it also takes bf16 tensors:
+    the arguments go through `up_cast`, the wrapper launches its kernel, or
+    runs its plain version on the CPU, in fp32, and when the first argument
+    was bf16 each output is cast to `out_dtype`, by default bf16 (the
+    caller's dtype). fp32 and float64 arguments pass through untouched, so
+    the fp32 path is the wrapper itself."""
+    def decorate(wrapper):
+        @functools.wraps(wrapper)
+        def island(*args, **kwargs):
+            if not (isinstance(args[0], torch.Tensor) and args[0].dtype == torch.bfloat16):
+                return wrapper(*args, **kwargs)
+            out = wrapper(*up_cast(args), **kwargs)
+            return _map_tensors(lambda t: t.to(out_dtype or torch.bfloat16), out)
+        return island
+    return decorate

@@ -51,8 +51,12 @@ def pack_plain(k00, fold00, k01, fold01, kd, foldd):
         *fold00, *fold01, *foldd, pack_conv_rows(k00), pack_conv(k01), pack_conv(kd))])
 
 
+@cuda_build.fp32_island()
 def encoder_head(imgs, k00, fold00, k01, fold01, kd, foldd):
-    """The K4 wrapper; same arguments and results as the plain version."""
+    """The K4 wrapper; same arguments and results as the plain version.
+
+    An fp32 island of the bf16 mode: bf16 images and weights are cast up,
+    the head runs in fp32, and conv01 and down0 come back in bf16."""
     what = "encoder_head"
     folds = (*fold00, *fold01, *foldd)
     if not cuda_build.require_cuda_inputs(what, imgs, k00, k01, kd, *folds):

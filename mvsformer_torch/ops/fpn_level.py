@@ -55,8 +55,12 @@ def pack_k3(k3):
     return pack_conv3x3(k3)
 
 
+@cuda_build.fp32_island()
 def fpn_level(intra_prev, lateral, w1, b1, k3, b3, fold, emit_intra: bool = False):
-    """The K5 wrapper; same arguments and results as the plain version."""
+    """The K5 wrapper; same arguments and results as the plain version.
+
+    An fp32 island of the bf16 mode: bf16 maps and weights are cast up, the
+    level runs in fp32, and its outputs come back in bf16."""
     what = "fpn_level"
     mul, add = fold
     if not cuda_build.require_cuda_inputs(what, intra_prev, lateral, w1, b1, k3, b3,

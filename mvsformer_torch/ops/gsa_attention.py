@@ -35,12 +35,17 @@ def gsa_attention_plain(q, k, v, num_heads: int):
     return torch.matmul(attn, vh).transpose(1, 2).reshape(B, N, C)
 
 
+@cuda_build.fp32_island()
 def gsa_attention(q, k, v, num_heads: int):
     """The K6 wrapper; same arguments and result as the plain version.
 
     On CUDA it takes float32 tensors with unit stride along C and rows
     16-byte aligned (k and v may be the two halves of one [B, Nk, 2C]
-    tensor), and head width 32; it raises on anything else.
+    tensor), and head width 32; it raises on anything else. An fp32 island
+    of the bf16 mode: bf16 q, k and v are cast up (to new, contiguous
+    tensors), the attention runs in fp32 (logits and probabilities
+    unrounded, where the JAX einsums round both to bf16), and the output
+    comes back in bf16.
     """
     what = "gsa_attention"
     if not cuda_build.require_cuda_inputs(what, q, k, v):

@@ -37,8 +37,15 @@ def visibility_net_plain(ent, k0, k1, k2, k3, b3, folds):
     return torch.sigmoid(F.conv2d(x, k3, b3))[:, 0]
 
 
+@cuda_build.fp32_island(out_dtype=torch.float32)
 def visibility_net(ent, k0, k1, k2, k3, b3, folds):
-    """The K2 wrapper; same arguments and result as the plain version."""
+    """The K2 wrapper; same arguments and result as the plain version.
+
+    An fp32 island of the bf16 mode: bf16 entropy and weights are cast up
+    and the kernel (or the plain version) runs in fp32 throughout, where
+    the Pallas kernel rounds to bf16 between its layers (ROADMAP E8). The
+    weight comes back in fp32 either way: its sigmoid is an fp32 island of
+    the JAX model too."""
     what = "visibility_net"
     flat_folds = [t for pair in folds for t in pair]
     if not cuda_build.require_cuda_inputs(what, ent, k0, k1, k2, k3, b3, *flat_folds):

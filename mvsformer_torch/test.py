@@ -9,9 +9,12 @@ fuses them into one PLY per scan by `pcd`, `dpcd` or `gipuma` filtering.
         --testlist lists/dtu/test.txt --ckpt_dir saved/models/RUN --which_ckpt model_best \\
         --outdir outputs --max_h 1152 --max_w 1536 --ndepths 192 --filter_method pcd
 
+`--dtype bf16`, the default as in the JAX CLI, computes in bf16 with the
+JAX package's fp32 islands (`build_model`'s `dtype`); `--dtype fp32`
+computes in fp32 throughout.
+
 Departures from the JAX CLI:
 - `--device` (default `cuda`) replaces `--platform`.
-- `--dtype` takes fp32 only: the port has no bf16 mode yet (ROADMAP B).
 - Weights come from `<ckpt_dir>/<which_ckpt>.pth`, a checkpoint that
   `python -m mvsformer_torch.train` wrote, or from `--torch_ckpt` (a
   reference `.pth`); the JAX package's orbax checkpoint directories are not
@@ -33,7 +36,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="MVSFormer testing on PyTorch and CUDA",
         epilog="Departures from the JAX package's test.py: --device replaces --platform; "
-               "--dtype takes fp32 only (no bf16 mode yet, ROADMAP B); weights come from "
+               "weights come from "
                "<ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (orbax restore: ROADMAP A4); "
                "--data_parallel, "
                "--view_parallel and --depth_parallel above 1 (ROADMAP A5) are not ported; "
@@ -80,8 +83,9 @@ def parse_args(argv=None):
     parser.add_argument("--skip_depth", action="store_true",
                         help="fusion only (phase-1 outputs already exist)")
     parser.add_argument("--skip_fusion", action="store_true")
-    parser.add_argument("--dtype", default="fp32", choices=["bf16", "fp32"],
-                        help="fp32 only: the port has no bf16 mode yet (ROADMAP B)")
+    parser.add_argument("--dtype", default="bf16", choices=["bf16", "fp32"],
+                        help="compute dtype: bf16 (the default) keeps the JAX package's "
+                             "fp32 islands; fp32 computes in fp32 throughout")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
     parser.add_argument("--batch_size", type=int, default=1,
@@ -99,12 +103,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dtype == "bf16":
-        raise NotImplementedError("--dtype bf16: the port has no bf16 mode yet "
-                                  "(ROADMAP B, bf16 autocast with the fp32 islands)")
     if args.data_parallel * args.view_parallel * args.depth_parallel > 1:
         raise NotImplementedError("--data_parallel, --view_parallel and --depth_parallel "
                                   "above 1 are not ported yet (ROADMAP A5)")
+
+    import torch
 
     from mvsformer_torch import resolve_device
     from mvsformer_torch.config import load_config
@@ -129,7 +132,8 @@ def main(argv=None):
         cfg = load_config(os.path.join(args.ckpt_dir, "config.json"))
         if args.eval_view_chunk:
             cfg.arch.eval_view_chunk = args.eval_view_chunk
-        model = build_model(cfg.arch, device=device)
+        dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+        model = build_model(cfg.arch, device=device, dtype=dtype)
         ckpt = args.torch_ckpt or os.path.join(args.ckpt_dir, args.which_ckpt + ".pth")
         if not os.path.isfile(ckpt):
             if os.path.isdir(os.path.join(args.ckpt_dir, args.which_ckpt)):

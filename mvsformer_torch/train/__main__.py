@@ -6,18 +6,19 @@ Port of the JAX package's `train.py`, with the same flags:
         --data_path /path/to/dtu_training [--resume | --finetune RUN_DIR]
 
 It builds the dataset of `data.type` (DTULoader or BlendedLoader) for the
-train and val lists, the threaded loaders, the config's model in fp32
-(TwinMVSNet, or DINOMVSNet for `arch.model_type` "dino"; weights from
-`--seed`, and a pretrained Twins or DINO ViT backbone with `--vit_path`),
-then trains
-with validation and checkpoints in `save_dir/models/<name>/`, which holds
+train and val lists, the threaded loaders, the config's model (TwinMVSNet,
+or DINOMVSNet for `arch.model_type` "dino"; weights from `--seed`, and a
+pretrained Twins or DINO ViT backbone with `--vit_path`) with fp32
+parameters computing in `--dtype`: bf16 by default, as in the JAX CLI,
+with the JAX package's fp32 islands (optimizer state and checkpoints stay
+fp32, no loss scaler), or fp32 throughout with `--dtype fp32`. Then it
+trains with validation and checkpoints in `save_dir/models/<name>/`, which holds
 `config.json`, `info.log`, `train_log.jsonl` and the `model_*.pth`
 checkpoints. `--resume` continues from that run dir's furthest checkpoint;
 `--finetune DIR` starts from another run's `--finetune_name` checkpoint.
 
 Departures from the JAX CLI:
 - `--device` (default `cuda`) replaces `--platform`.
-- `--dtype` defaults to fp32, the port's only mode (bf16: ROADMAP B).
 - One device: `--data_parallel`, `--view_parallel` and `--depth_parallel`
   above 1 and `--multi_host` are not ported (ROADMAP A5).
 - No TensorBoard writer (the card's machine has no tensorboard package):
@@ -37,7 +38,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="MVSFormer training on PyTorch and CUDA",
         epilog="Departures from the JAX package's train.py: --device replaces --platform; "
-               "--dtype takes fp32 only (ROADMAP B); parallel axes above 1 and --multi_host "
+               "parallel axes above 1 and --multi_host "
                "are not ported (ROADMAP A5); no TensorBoard writer.")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--data_path", type=str, default=None)
@@ -59,8 +60,10 @@ def parse_args(argv=None):
     parser.add_argument("--save_every_steps", type=int, default=None,
                         help="a mid-epoch model_step checkpoint every N steps (--resume picks "
                              "it up)")
-    parser.add_argument("--dtype", type=str, default="fp32", choices=["bf16", "fp32"],
-                        help="fp32 only: the port has no bf16 mode yet (ROADMAP B)")
+    parser.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"],
+                        help="compute dtype: bf16 (the default) keeps the JAX package's fp32 "
+                             "islands, with fp32 parameters, optimizer state and "
+                             "checkpoints; fp32 computes in fp32 throughout")
     parser.add_argument("--data_parallel", type=int, default=1,
                         help="above 1: not ported (ROADMAP A5)")
     parser.add_argument("--view_parallel", type=int, default=1,
@@ -83,9 +86,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.dtype == "bf16":
-        raise NotImplementedError("--dtype bf16: the port has no bf16 mode yet "
-                                  "(ROADMAP B, bf16 autocast with the fp32 islands)")
     if max(args.data_parallel, args.view_parallel, args.depth_parallel) > 1 or args.multi_host:
         raise NotImplementedError("--data_parallel, --view_parallel and --depth_parallel above "
                                   "1 and --multi_host are not ported yet (ROADMAP A5)")
@@ -114,7 +114,8 @@ def main(argv=None):
         cfg.trainer.save_every_steps = args.save_every_steps
 
     torch.manual_seed(args.seed)
-    model = build_model(cfg.arch, device=device, train=True)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    model = build_model(cfg.arch, device=device, train=True, dtype=dtype)
 
     is_blended = cfg.data.type == "BlendedLoader"
     ds_cls = BlendedMVSDataset if is_blended else DTUMVSDataset

@@ -14,10 +14,15 @@ Port of the single-device part of `mvsformer_tpu/parallel/train_step.py`
 - the gradients are summed over the micro-batches and divided by their
   number, then one AdamW step and one schedule step follow.
 
-Forward and backward run with TF32 off (`fp32_math`): the model is fp32
-on the card. The batch takes the model's dtype, so a float64 model (the CPU
-parity test's) runs the step in float64 around the same fp32 parts as the
-JAX model: the warp and correlation, the softmaxes and the losses.
+Forward and backward run with TF32 off (`fp32_math`), so the fp32 work
+runs in full fp32 on the card. The batch takes the parameters' dtype, so a
+float64 model (the CPU parity test's) runs the step in float64 around the
+same fp32 parts as the JAX model: the warp and correlation, the softmaxes
+and the losses. A bf16 model (`build_model(..., dtype=torch.bfloat16)`)
+casts the images to bf16 in its forward and keeps the JAX package's fp32
+islands; its outputs, the losses and the backward's gradients reach the
+fp32 parameters in fp32, and AdamW's state stays fp32. There is no loss
+scaler: bf16 has fp32's exponent range.
 `train/trainer.py` drives it over the data loader's batches; the batch is
 a dict of tensors or arrays in the JAX layout:
 imgs [B, V, H, W, 3], proj_matrices {stageK: [B, V, 2, 4, 4]},

@@ -715,3 +715,74 @@ def test_training_micro_batch_at_a_non_512_crop_matches_plain(dev):
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
                if p.grad is not None)
     hold_recorded_calls(specs, recorded, chip_smoke.TRAIN_PER_MICRO)
+
+
+def island_cases(dev):
+    """(name, wrapper, args, kwargs) of K2, K4, K5 and K6 with bf16
+    activations and weights and fp32 folded BN, as the bf16 model calls
+    them."""
+    rng = np.random.default_rng(21)
+    t = tensor(dev)
+    b = lambda x: x.bfloat16()
+    ent, (k0, k1, k2, k3, b3, folds) = vis_inputs(rng, dev, 2, 40, 70)
+    k00, f00, k01, f01, kd, fd = head_weights(rng, t)
+    w1, b1, k3l, b3l, fold = level_weights(rng, t, 16, 16)
+    q, kv = t(rng.standard_normal((2, 300, 64))), t(rng.standard_normal((2, 100, 128)))
+    return [
+        ("visibility_net", visibility_net,
+         (b(ent), b(k0), b(k1), b(k2), b(k3), b(b3), folds), {}),
+        ("encoder_head", encoder_head,
+         (b(t(rng.standard_normal((2, 3, 37, 45)))), b(k00), f00, b(k01), f01, b(kd), fd), {}),
+        ("fpn_level", fpn_level,
+         (b(t(rng.standard_normal((1, 64, 7, 9)))), b(t(rng.standard_normal((1, 16, 14, 18)))),
+          b(w1), b(b1), b(k3l), b(b3l), fold), {"emit_intra": True}),
+        ("gsa_attention", gsa_attention, (b(q), b(kv[..., :64]), b(kv[..., 64:]), 2), {}),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4), ids=["K2", "K4", "K5", "K6"])
+def test_island_kernels_take_bf16(dev, case):
+    """The bf16 mode's fp32 islands: with bf16 inputs each of K2, K4, K5
+    and K6 launches its fp32 kernel once on the inputs cast up and returns
+    that result cast to bf16 (K2's weight stays fp32), bit for bit."""
+    name, wrapper, args, kwargs = island_cases(dev)[case]
+    before = cuda_build.LAUNCHES[name]
+    got = wrapper(*args, **kwargs)
+    assert cuda_build.LAUNCHES[name] == before + 1
+    want = wrapper(*cuda_build.up_cast(args), **kwargs)
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    for g, w in zip(got, want):
+        assert w.dtype == torch.float32
+        assert g.dtype == (torch.float32 if name == "visibility_net" else torch.bfloat16)
+        assert torch.equal(g, w.to(g.dtype)), name
+
+
+def test_bf16_forward_on_the_card_runs_every_eval_kernel(dev):
+    """The bf16 TwinMVSNet eval forward (the default ModelConfig, 3 views,
+    128x128, 192 depths): K1-K6 launch as in fp32 (K1 and K3 on fp32
+    inputs, K2/K4/K5/K6 on bf16 inputs cast up), the outputs are fp32 and
+    finite, and they lie within 1 depth unit (over 425-900) and 5e-3 in
+    confidence of the fp32 model's on the same weights. On the CPU the same
+    two models differ by 0.21 and 6.8e-4 at most."""
+    import chip_smoke
+    from mvsformer_torch.config import ModelConfig
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+
+    cfg = ModelConfig()
+    m32 = random_init_(build_model(cfg, device=dev), torch.Generator().manual_seed(0))
+    m16 = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    m16.load_state_dict(m32.state_dict())
+    request = chip_smoke.synthetic_request(torch, 1, 3, 128, 128, device=dev)
+    cuda_build.reset_launches()
+    depth, conf, _ = make_infer_fn(m16)(*request)
+    counts = dict(cuda_build.LAUNCHES)
+    assert all(counts.get(k, 0) == 4 for k in ("warp_group_corr", "visibility_net",
+                                               "depth_decode")), counts
+    assert counts.get("encoder_head") == 1 and counts.get("fpn_level") == 3, counts
+    assert counts.get("gsa_attention") == 9, counts
+    assert depth.dtype == conf.dtype == torch.float32
+    assert bool(torch.isfinite(depth).all()) and bool(((conf > 0) & (conf <= 1)).all())
+    depth32, conf32, _ = make_infer_fn(m32)(*request)
+    assert float((depth - depth32).abs().max()) <= 1.0
+    assert float((conf - conf32).abs().max()) <= 5e-3

@@ -344,7 +344,8 @@ def test_cli_runs_save_depth_and_fusion_on_the_cpu(tree, ckpt, tmp_path):
     port_cli.main(["--testpath", tree["data"], "--testlist", listfile, "--ckpt_dir", ckpt["run"],
                    "--torch_ckpt", ckpt["path"], "--outdir", out, "--max_h", str(SIZE),
                    "--max_w", str(SIZE), "--ndepths", str(NDEPTHS), "--num_view", str(NUM_VIEW),
-                   "--device", "cpu", "--prob_threshold", "0.0", "--thres_view", "2"])
+                   "--device", "cpu", "--prob_threshold", "0.0", "--thres_view", "2",
+                   "--dtype", "fp32"])
     points, colors = read_ply(os.path.join(out, "scan1.ply"))
     assert points.shape[0] > 100 and colors.shape == points.shape
     assert np.isfinite(points).all()
@@ -354,8 +355,42 @@ def test_cli_runs_save_depth_and_fusion_on_the_cpu(tree, ckpt, tmp_path):
         assert os.path.exists(os.path.join(out, "scan1", kind, f"{NV - 1:0>8}{ext}"))
 
 
+@pytest.mark.parametrize("argv", [[], ["--dtype", "bf16"]], ids=["default", "bf16"])
+def test_cli_serves_in_bf16(tree, ckpt, tmp_path, argv):
+    """The CLI computes in bf16 by default, as the JAX test.py does: each
+    saved depth and confidence is, bit for bit, `make_infer_fn` of the
+    bf16 model on the same checkpoint and sample; depths are finite and
+    within the sample's hypotheses, confidences in (0, 1], and the fusion
+    writes a PLY of finite points."""
+    out, listfile = str(tmp_path / "out"), tmp_path / "list.txt"
+    listfile.write_text("scan1\n")
+    port_cli.main(["--testpath", tree["data"], "--testlist", str(listfile),
+                   "--ckpt_dir", ckpt["run"], "--torch_ckpt", ckpt["path"], "--outdir", out,
+                   "--max_h", str(SIZE), "--max_w", str(SIZE), "--ndepths", str(NDEPTHS),
+                   "--num_view", str(NUM_VIEW), "--device", "cpu", "--prob_threshold", "0.0",
+                   "--thres_view", "2"] + argv)
+    model = build_model(ModelConfig(**CFG), device="cpu", dtype=torch.bfloat16)
+    load_reference_checkpoint(ckpt["path"], model)
+    infer = port_infer.make_infer_fn(model, TMPS)
+    ds = port_eval.MVSEvalDataset(tree["data"], ["scan1"], nviews=NUM_VIEW, ndepths=NDEPTHS,
+                                  interval_scale=1.06, max_h=SIZE, max_w=SIZE)
+    for vid in (0, NV - 1):
+        batch = collate([ds[vid]])
+        depth, conf, _ = infer(batch["imgs"], {k: batch["proj_matrices"][k] for k in (
+            "stage1", "stage2", "stage3", "stage4")}, batch["depth_values"])
+        saved_depth = read_pfm(artifact(out, "depth_est", vid, ".pfm"))[0]
+        saved_conf = np.load(artifact(out, "confidence", vid, ".npy"))
+        np.testing.assert_array_equal(saved_depth, depth[0].numpy())
+        np.testing.assert_array_equal(saved_conf, conf[0].numpy())
+        dv = batch["depth_values"][0]
+        assert np.isfinite(saved_depth).all()
+        assert dv.min() <= saved_depth.min() and saved_depth.max() <= dv.max()
+        assert ((saved_conf > 0) & (saved_conf <= 1)).all()
+    points, colors = read_ply(os.path.join(out, "scan1.ply"))
+    assert points.shape[0] > 0 and np.isfinite(points).all() and colors.shape == points.shape
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--dtype", "bf16"], "bf16"),
     (["--data_parallel", "2"], "ROADMAP A5"),
     (["--view_parallel", "2"], "ROADMAP A5"),
     (["--which_ckpt", "orbax_best"], "ROADMAP A4"),
@@ -377,7 +412,7 @@ def test_cli_serves_over_view_chunks(tree, ckpt, saved, tmp_path):
                    "--ckpt_dir", ckpt["run"], "--torch_ckpt", ckpt["path"], "--outdir", out,
                    "--max_h", str(SIZE), "--max_w", str(SIZE), "--ndepths", str(NDEPTHS),
                    "--num_view", str(NUM_VIEW), "--device", "cpu", "--skip_fusion",
-                   "--eval_view_chunk", "2"])
+                   "--eval_view_chunk", "2", "--dtype", "fp32"])
     for vid in range(NV):
         got = read_pfm(artifact(out, "depth_est", vid, ".pfm"))[0]
         want = read_pfm(artifact(saved["port"], "depth_est", vid, ".pfm"))[0]
@@ -388,7 +423,8 @@ def test_cli_help_states_the_departures(capsys):
     with pytest.raises(SystemExit):
         port_cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
-    for needle in ("--device replaces --platform", "fp32 only", "orbax restore: ROADMAP A4",
+    for needle in ("--device replaces --platform", "bf16 (the default)",
+                   "orbax restore: ROADMAP A4",
                    "ROADMAP A5", "no JPEG decoder", "written as PNG"):
         assert needle in text, needle
 
@@ -419,7 +455,7 @@ def test_a_dino_checkpoint_serves_through_the_cli(tree, tmp_path):
     port_cli.main(["--testpath", tree["data"], "--testlist", listfile, "--ckpt_dir", run,
                    "--torch_ckpt", path, "--outdir", out, "--max_h", str(SIZE), "--max_w",
                    str(SIZE), "--ndepths", str(NDEPTHS), "--num_view", str(NUM_VIEW),
-                   "--device", "cpu", "--skip_fusion"])
+                   "--device", "cpu", "--skip_fusion", "--dtype", "fp32"])
 
     jcfg = jax_load_config(os.path.join(run, "config.json")).arch
     assert jcfg.model_type == "dino"

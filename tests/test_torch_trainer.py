@@ -215,7 +215,7 @@ def test_train_cli_runs_resumes_and_feeds_the_test_cli(dtu_root, tmp_path):
     cfg = toy_config(dtu_root, save_dir)
     config = str(tmp_path / "config.json")
     save_config(cfg, config)
-    base = ["--config", config, "--device", "cpu", "--seed", "1"]
+    base = ["--config", config, "--device", "cpu", "--seed", "1", "--dtype", "fp32"]
     try:
         history = train_cli.main(base + ["--save_every_steps", "2", "--debug", "--profile_dir",
                                           str(tmp_path / "prof"), "--profile_start", "1",
@@ -260,7 +260,7 @@ def test_train_cli_runs_resumes_and_feeds_the_test_cli(dtu_root, tmp_path):
         test_cli.main(["--testpath", eval_root, "--testlist", listfile, "--ckpt_dir", run_dir,
                        "--which_ckpt", "model_best", "--outdir", out, "--max_h", "64",
                        "--max_w", "64", "--ndepths", "16", "--num_view", "3", "--device", "cpu",
-                       "--skip_fusion"])
+                       "--skip_fusion", "--dtype", "fp32"])
         model = build_model(cfg.arch, device="cpu")
         load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), model)
         ds = MVSEvalDataset(eval_root, ["scan1"], nviews=3, ndepths=16, interval_scale=1.06,
@@ -276,8 +276,32 @@ def test_train_cli_runs_resumes_and_feeds_the_test_cli(dtu_root, tmp_path):
         shutil.rmtree(save_dir, ignore_errors=True)  # three checkpoints of ~0.3 GB each
 
 
+@pytest.mark.parametrize("argv", [[], ["--dtype", "bf16"]], ids=["default", "bf16"])
+def test_train_cli_trains_in_bf16(dtu_root, tmp_path, argv):
+    """The CLI trains in bf16 by default, as the JAX train.py does: one toy
+    epoch with finite losses, and checkpoints whose tensors, and whose
+    optimizer moments, are all fp32 (the layout of an fp32 run's)."""
+    save_dir = str(tmp_path / "saved")
+    cfg = toy_config(dtu_root, save_dir)
+    config = str(tmp_path / "config.json")
+    save_config(cfg, config)
+    try:
+        history = train_cli.main(["--config", config, "--device", "cpu"] + argv)
+        assert len(history) == 1 and np.isfinite(history[0]["loss"])
+        steps = [r for r in records(os.path.join(save_dir, "models", "toy")) if r["kind"] == "step"]
+        assert len(steps) == 3 and all(np.isfinite(r["loss"]) for r in steps)
+        saved = torch.load(os.path.join(save_dir, "models", "toy", "model_last.pth"),
+                           weights_only=False)
+        floats = [v for v in saved["state_dict"].values() if v.is_floating_point()]
+        assert floats and all(v.dtype == torch.float32 for v in floats)
+        moments = [t for st in saved["optimizer"]["state"].values() for t in st.values()
+                   if torch.is_tensor(t) and t.is_floating_point() and t.dim() > 0]
+        assert moments and all(t.dtype == torch.float32 for t in moments)
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--dtype", "bf16"], "ROADMAP B"),
     (["--data_parallel", "2"], "ROADMAP A5"),
     (["--view_parallel", "2"], "ROADMAP A5"),
     (["--depth_parallel", "2"], "ROADMAP A5"),
@@ -306,7 +330,8 @@ def test_train_cli_trains_the_p_config_with_a_frozen_vit(dtu_root, tmp_path):
     vit = {k: torch.from_numpy(v) for k, v in synth_dino_sd(np.random.default_rng(0)).items()}
     torch.save(vit, vit_path)
     try:
-        history = train_cli.main(["--config", config, "--device", "cpu", "--vit_path", vit_path])
+        history = train_cli.main(["--config", config, "--device", "cpu", "--vit_path", vit_path,
+                                  "--dtype", "fp32"])
         assert len(history) == 1 and np.isfinite(history[0]["loss"])
         run_dir = os.path.join(save_dir, "models", "toy_p")
         with open(os.path.join(run_dir, "info.log")) as f:

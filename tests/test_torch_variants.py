@@ -47,6 +47,7 @@ from mvsformer_torch.train.step import TrainStep
 from mvsformer_torch.utils.convert_weights import (BUFFER_SUFFIXES, convert_flax_grads,
                                                    load_flax_twin, load_reference_checkpoint)
 
+import chip_smoke
 from test_torch_model import CFG, TMPS, make_batch
 from test_torch_train_step import EPOCHS, OPT, jax_x64, make_train_batch, micro, to_numpy64
 from test_torch_watchdog import watchdog
@@ -451,26 +452,10 @@ def grad_bound(want):
     return GRAD_ATOL + GRAD_RTOL * np.abs(want) + GRAD_OF_SCALE * float(np.abs(want).max())
 
 
-def zero_in_exact_arithmetic(model):
-    """The tensors whose gradient is 0 in exact arithmetic, and so holds
-    only the rounding noise, which the L2 check does not read (as
-    tests/test_torch_train_step.py notes): the cost regularisers'
-    probability biases, ahead of the softmax over depth, and the biases of
-    convs ahead of a batch or group norm."""
-    names = {n for n, _ in model.named_parameters() if n.endswith("cost_reg.prob.bias")}
-    for name, mod in model.named_modules():
-        if (isinstance(mod, torch.nn.Sequential) and len(mod) > 1
-                and isinstance(mod[1], (torch.nn.modules.batchnorm._BatchNorm,
-                                        torch.nn.GroupNorm))
-                and getattr(mod[0], "bias", None) is not None):
-            names.add(f"{name}.0.bias")
-    return names
-
-
 def test_step_gradients_match_jax(step):
     named = dict(step["model"].named_parameters())
     assert set(named) == set(step["want_grads"])
-    noise_only = zero_in_exact_arithmetic(step["model"])
+    noise_only = chip_smoke.zero_in_exact_arithmetic(torch, step["model"])
     for name, want in step["want_grads"].items():
         got, want = named[name].grad, want.numpy()
         assert got is not None and got.dtype == torch.float64, name
