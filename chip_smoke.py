@@ -103,16 +103,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    set; the CLI's default dtype, bf16) on a synthetic DTU training tree
    written by the port's writers: one scan of 5 views x 7 lights of the
    tilted plane, 1600x1200 PNG whose rows take libpng's adaptive filters,
-   cam files and Depths_raw. 4 steps at the 4 largest crop sizes
-   (1024x1280 first, 8 micro-batches of 1), a `--profile_dir` window of
-   steps 2-3, validation over the 35 samples (5 batches, B=8 and B=3,
-   512x640). Then `--resume` with 2 epochs (4 more steps and a
-   validation), then `python -m mvsformer_torch.test --which_ckpt
+   cam files and Depths_raw, 3 of the views listed as references. 2 steps
+   at the 2 largest crop sizes (1024x1280 first, 8 micro-batches of 1), a
+   `--profile_dir` window of step 2, validation over the 21 samples (3
+   batches, B=8 and B=5, 512x640). Then `--resume` with 2 epochs (2 more
+   steps and a validation), then `python -m mvsformer_torch.test --which_ckpt
    model_best` (bf16, its default) on phase 11's eval scan. Each step must show a
    finite loss, the barrels' crop size, K7/K8 4 launches a micro-batch and
    K1-K6 none; each validation K1-K6 at their per-request counts a batch;
    model_best, model_last, model_step and their sidecars must be written;
-   the resume must start at epoch 2, global step 4, at LR schedule(4);
+   the resume must start at epoch 2, global step 2, at LR schedule(2);
    model_last restored in this process must equal the file bit for bit;
    the test CLI's view 0 must match `make_infer_fn` of the restored model
    in bf16 within the card-to-CPU bounds. Prints per step its ms, crop, micro-
@@ -199,10 +199,44 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel's entry of the
    kernels line adds this phase's checks and a request's, a DINO request's
    and a step's launches.
-16. Print one JSON line of per-kernel numbers, then, last, the result line
+16. The process grid (data and view parallelism, `mvsformer_torch/parallel/`):
+   two ranks on this one card over gloo (NCCL puts one rank on a card),
+   each a process that `python -m torch.distributed.run` starts, with a
+   time limit on every launch; the kernels are built (phase 2) before any
+   rank starts. One launch runs 16a-16c, each rank writing its results to
+   a file that this process compares. 16a: phase 4's request at view 2
+   (each rank the reference and 2 of the 4 sources; the view sums
+   all-reduced), each rank's depth and confidence within phase 7's bounds
+   of phase 4's serial request and of the other rank's (cuDNN's transposed
+   3D convs are not deterministic, so not bit for bit); each rank's
+   launches (K1-K6 at phase 4's counts) and K1's launch shapes printed,
+   K1-K6 held to their plain versions at rank 0's launches (3 images, 2
+   sources), the other rank waiting at a barrier so that the checks' times
+   are the card's alone. 16b: phase 8's
+   step (8 x 5 x 512x640, drop path 0) at data 2 with SyncBN, each rank 4
+   samples as 2 micro-batches of 2 (its share of each micro-batch of 4),
+   and 16c: the step at view 2 under GN (BN's FPN statistics over a view
+   rank's own views would be another function), each rank all 8 samples at
+   1 + 2 views; each rank's averaged gradients against the serial step's
+   on the same weights and batch (for 16b with the data-parallel loss, each
+   shard's masked mean averaged), per layer group by `grad_group_check` at
+   a stated bound with its five mutants rejected, the loss and the running
+   statistics at phase 10's bounds; K7/K8 4 launches a micro-batch a rank,
+   held to their plain versions at rank 0's launches in 16c (the other
+   rank at a barrier); each rank's step ms and peak memory. 16d, three
+   torchrun launches at once beside the serial CLI in this process:
+   `python -m mvsformer_torch.train` at data 2 in the CLI's default bf16
+   (gloo, both ranks on this card) for two steps on a 3-view training
+   tree, whose run directory holds one set of files written by rank 0 and
+   each step recorded once; `python -m mvsformer_torch.test` at view 2 on
+   phase 11's plane scan against the serial CLI in this process (the same
+   files, depth and confidence within phase 7's bounds); the train CLI at
+   world 1 on NCCL for one step. Each kernel's entry of the kernels line
+   adds the ranks' launches and rank 0's checks.
+17. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
-   the CLI runs' output to chiprun_out/training_run_*.log and
-   chiprun_out/dino_test.log.
+   the CLI runs' output to chiprun_out/training_run_*.log,
+   chiprun_out/dino_test.log and chiprun_out/parallel_*.log.
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
@@ -225,6 +259,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12
@@ -1730,15 +1765,17 @@ def pipeline_phase(torch, card, specs, device="cuda"):
 # The training run (phase 12): `python -m mvsformer_torch.train` with
 # configs/config_mvsformer.json as it ships, on a synthetic DTU training
 # tree of one scan (5 views x 7 lights of the tilted plane at 1600x1200,
-# PNG rows with libpng's adaptive filters), then `--resume` for a second
+# PNG rows with libpng's adaptive filters; 3 views listed as references,
+# so 21 samples), then `--resume` for a second
 # epoch, then `python -m mvsformer_torch.test --which_ckpt model_best`.
 RUN_CONFIG = "configs/config_mvsformer.json"
 # What the config must still give: batch, views, depths, crop sizes, loader
 # threads, augmentation.
 RUN_SHAPE = (8, 5, 192, 25, 4, True)
-RUN_VIEWS = 5                  # x 7 lights: 35 samples, 4 steps of 8 (3 dropped), 5 val batches
+RUN_VIEWS = 5                  # the config's nviews: every reference has 4 sources
+RUN_REFS = 3                   # x 7 lights: 21 samples, 2 steps of 8 (5 dropped), 3 val batches
 DTU_LIGHTS = 7                 # the lights `data/dtu.py` reads for every view
-RUN_PROFILE = (1, 2)           # --profile_start, --profile_steps
+RUN_PROFILE = (1, 1)           # --profile_start, --profile_steps
 RUN_TIMEOUT_S = 900
 # Launches per validation batch (K1-K6) and per training micro-batch (K7, K8).
 EVAL_PER_BATCH = {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
@@ -1746,9 +1783,10 @@ EVAL_PER_BATCH = {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
 TRAIN_PER_MICRO = {"warp_corr_fwd": 4, "warp_corr_bwd": 4}
 
 
-def write_dtu_train_tree(root, views, lights=DTU_LIGHTS, img_hw=None, seed=0):
+def write_dtu_train_tree(root, views, lights=DTU_LIGHTS, img_hw=None, seed=0, refs=None):
     """A DTU training tree under `root` in the layout `data/dtu.py` reads:
-    Cameras/pair.txt (every other view a source) and <vid>_cam.txt
+    Cameras/pair.txt (the first `refs` views, all by default, as references,
+    every other view a source of each) and <vid>_cam.txt
     (intrinsics at the image's size; depth_min 425, interval 2.5),
     DTU_origin/Rectified/scan1/rect_<vid + 1>_<light>_r5000.png (the plane's
     texture, brighter by light, with noise; rows with libpng's adaptive
@@ -1773,8 +1811,8 @@ def write_dtu_train_tree(root, views, lights=DTU_LIGHTS, img_hw=None, seed=0):
     for d in (cams, rect, raw):
         os.makedirs(d, exist_ok=True)
     with open(os.path.join(cams, "pair.txt"), "w") as fp:
-        fp.write(f"{views}\n")
-        for ref in range(views):
+        fp.write(f"{refs or views}\n")
+        for ref in range(refs or views):
             srcs = sorted((v for v in range(views) if v != ref), key=lambda v: abs(v - ref))
             fp.write(f"{ref}\n{len(srcs)} " + " ".join(f"{s} {100 - abs(s - ref)}" for s in srcs)
                      + "\n")
@@ -1836,7 +1874,8 @@ def record_calls(torch, specs, fn, *args):
         setattr(spec["owner"], name, recorder(name))
     try:
         out = fn(*args)
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
     finally:
         for name, spec in specs.items():
             setattr(spec["owner"], name, originals[name])
@@ -1922,7 +1961,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         # 12a. The tree and the config as it ships, but for the paths and the run's length.
         t0 = time.perf_counter()
         data = os.path.join(root, "dtu")
-        filters = write_dtu_train_tree(data, RUN_VIEWS)
+        filters = write_dtu_train_tree(data, RUN_VIEWS, refs=RUN_REFS)
         listfile = os.path.join(root, "scans.txt")
         with open(listfile, "w") as f:
             f.write("scan1\n")
@@ -1931,7 +1970,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         if (cfg.data.batch_size, cfg.data.nviews, cfg.data.num_depths, len(msa.scales),
                 cfg.data.num_workers, cfg.data.augment) != RUN_SHAPE:
             raise RuntimeError(f"{RUN_CONFIG} no longer gives the training run this phase holds")
-        steps = RUN_VIEWS * DTU_LIGHTS // cfg.data.batch_size
+        steps = RUN_REFS * DTU_LIGHTS // cfg.data.batch_size
         cli_device = [] if device == "cuda" else ["--device", device]
         cfg.data.datapath = data
         cfg.data.train_data_list = cfg.data.val_data_list = listfile
@@ -1942,7 +1981,8 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         save_config(cfg, config1)
         cfg.trainer.epochs = 2
         save_config(cfg, config2)
-        print(f"training run tree: {RUN_VIEWS} views x {DTU_LIGHTS} lights of "
+        print(f"training run tree: {RUN_VIEWS} views x {DTU_LIGHTS} lights ({RUN_REFS} "
+              f"references) of "
               f"{PIPE_IMG_HW[1]}x{PIPE_IMG_HW[0]} PNG, written in {time.perf_counter() - t0:.1f} s; "
               f"rows by filter (None, Sub, Up, Average, Paeth): {filters}", flush=True)
 
@@ -2687,28 +2727,34 @@ def group_l2(torch, model, names):
                       for n in names])
 
 
-def grad_group_check(got, want, ref32):
+def grad_group_check(got, want, ref32=None, bound=None):
     """A gradient group `got` against `want` (the reference's bf16
     gradient), with `ref32` (its fp32 one) for the gap; flat arrays. Holds
     the relative L2 error to BF16_MULT times the gap plus BF16_GRAD_FLOOR
     and under BF16_GRAD_L2_MAX, 1 - cosine to BF16_MULT times the gap's,
     and the norm ratio's distance from 1 to BF16_MULT times the gap's plus
-    BF16_NORM_FLOOR; a gap over BF16_GRAD_GAP_MAX fails. A zero gradient
-    (cosine taken as 0), an unrelated or a negated one, and one scaled by
-    1/2 or 3/2 fail (`grad_mutants`). Returns (ok, readings)."""
+    BF16_NORM_FLOOR; a gap over BF16_GRAD_GAP_MAX fails. With `bound`
+    instead of `ref32` (two fp32 gradients), each of the three is held to
+    `bound`. A zero gradient (cosine taken as 0), an unrelated or a negated
+    one, and one scaled by 1/2 or 3/2 fail (`grad_mutants`). Returns (ok,
+    readings)."""
     import numpy as np
 
-    got, want, ref32 = (np.asarray(x, np.float64).ravel() for x in (got, want, ref32))
+    got, want = (np.asarray(x, np.float64).ravel() for x in (got, want))
     norm = np.linalg.norm
 
     def cos(a, b):
         n = norm(a) * norm(b)
         return float(a @ b / n) if n > 0 else 0.0
 
-    r = {"err": float(norm(got - want) / norm(want)),
-         "gap": float(norm(want - ref32) / norm(ref32)),
-         "cos": cos(got, want), "cos_gap": cos(want, ref32),
-         "norm": float(norm(got) / norm(want)), "norm_gap": float(norm(want) / norm(ref32))}
+    r = {"err": float(norm(got - want) / norm(want)), "cos": cos(got, want),
+         "norm": float(norm(got) / norm(want))}
+    if bound is not None:
+        return (r["err"] <= bound and 1 - r["cos"] <= bound
+                and abs(r["norm"] - 1) <= bound), r
+    ref32 = np.asarray(ref32, np.float64).ravel()
+    r.update(gap=float(norm(want - ref32) / norm(ref32)), cos_gap=cos(want, ref32),
+             norm_gap=float(norm(want) / norm(ref32)))
     ok = (r["gap"] <= BF16_GRAD_GAP_MAX
           and r["err"] <= min(BF16_MULT * r["gap"] + BF16_GRAD_FLOOR, BF16_GRAD_L2_MAX)
           and 1 - r["cos"] <= BF16_MULT * (1 - r["cos_gap"]) + BF16_GRAD_FLOOR
@@ -3104,9 +3150,582 @@ def bf16_phase(torch, card, specs, device="cuda"):
     return {"rows": rows, "launches": total, "details": details}
 
 
+# The process grid (phase 16): data and view parallelism over torch.distributed,
+# two ranks of one card over gloo (NCCL puts one rank on a card), each rank a
+# process that torchrun starts. Two ranks sharing one card say nothing of
+# scaling: this phase checks that the grid computes the serial function.
+PAR_RANKS = 2
+PAR_TIMEOUT_S = 420            # each torchrun launch, its ranks' start included
+# The grid's step against the serial step, per layer group: relative L2, 1 -
+# cosine and |norm ratio - 1| within phase 10's L2 bound. fp32 at random
+# weights: a rank's BN moments and the gradients' mean are summed in
+# another order, and an argmax flip moves the next stage's window (on the
+# CPU at 128x128 the grid read up to 6.6e-3 where images moved by 1e-6 of
+# their value move the serial step by up to 3.3e-3); every mutant lies at
+# 0.5 or further.
+PAR_GRAD_BOUND = STEP_GRAD_L2
+PAR_TRAIN_VIEWS = 3            # x 7 lights: 21 samples, padded to 11 a rank
+PAR_TRAIN_HW = (128, 128)      # 16d's crops (multiples of 64); the images PAR_TRAIN_IMG_HW
+PAR_TRAIN_IMG_HW = (300, 400)
+
+
+GRID_CONSTANTS = ("B", "V", "H", "W", "NDEPTH_FULL", "TRAIN_B", "TRAIN_MICRO", "TRAIN_V",
+                  "TRAIN_H", "TRAIN_W")
+
+
+def _grid_job(out):
+    """What the ranks of 16a-16c read: where to write, and the shapes they
+    run at, this module's constants in the parent (which a rehearsal
+    shrinks)."""
+    return {"out": out, "constants": {k: globals()[k] for k in GRID_CONSTANTS}}
+
+
+def _rank_share(torch, batch, d, data, micro):
+    """Data rank d's samples of a batch whose micro-batches of `micro`
+    samples split over `data` ranks: its micro / data samples of each."""
+    from mvsformer_torch.train.step import _map
+
+    n = batch["imgs"].shape[0]
+    per = micro // data
+    idx = torch.tensor([m + d * per + j for m in range(0, n, micro) for j in range(per)],
+                       device=batch["imgs"].device)
+    return _map(batch, lambda t: t.index_select(0, idx))
+
+
+def _par_config(norm, micro):
+    """Phase 8's Config without drop path (a rank draws its masks for its
+    own samples), under `norm`, with `micro` samples a micro-batch."""
+    from mvsformer_torch.config import Config
+
+    cfg = Config()
+    cfg.arch.vit_args.drop_path_rate = 0.0
+    cfg.arch.norm_type = norm
+    cfg.data.multi_scale_args.scale_batch_map = {str(TRAIN_H): micro}
+    return cfg
+
+
+def parallel_rank(job_path, card, device_name):
+    """One rank of 16a-16c, started by torchrun: join the gloo group on
+    `device_name` (every rank on one card), then
+    16a: the DTU request at view 2 (phase 4's model and weights), K1-K6
+    held to their plain versions at rank 0's launches; 16b: phase 8's step
+    at data 2 with SyncBN (micro-batches of TRAIN_MICRO / 2 a rank); 16c:
+    the step at view 2 under GN (K7/K8 held at rank 0's launches). Rank 0
+    checks while the other rank waits at a barrier. Each run with the
+    launch counts set to 0 just before it; the results go to
+    <out>/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from mvsformer_torch.config import ModelConfig
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.parallel.mesh import init_distributed, make_layout
+    from mvsformer_torch.train.step import TrainStep
+
+    with open(job_path) as f:
+        job = json.load(f)
+    globals().update(job["constants"])
+    device = init_distributed("gloo", device_name)
+    rank = dist.get_rank()
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(device) / 1e9 if on_card else 0.0
+
+    def driven(fn, *args):
+        """fn(*args) with the counts set to 0 just before and read just after."""
+        sync()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        return out, dict(cuda_build.LAUNCHES), (time.perf_counter() - t0) * 1e3
+
+    res = {"rank": rank}
+
+    # 16a. The request at view 2.
+    layout = make_layout(1, PAR_RANKS)
+    model = build_model(ModelConfig(), device=device, layout=layout)
+    random_init_(model, torch.Generator().manual_seed(0))
+    fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+    imgs, projs, dv = synthetic_request(torch, B, V, H, W, device=device)
+    fn(imgs, projs, dv)  # warm-up
+    k16 = eval_kernel_specs(model)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    (rec, (depth, conf, _)), counts, ms = driven(record_calls, torch, k16, fn, imgs, projs, dv)
+    res["16a"] = {"depth": depth.cpu(), "conf": conf.cpu(), "launches": counts, "ms": ms,
+                  "peak_gb": peak_gb(),
+                  "k1_shapes": [list(a[1].shape) for a, _ in rec["warp_group_corr"]]}
+    # K1-K6 at view rank 0's launches, timed with the card to itself: the
+    # other rank waits at the barriers. TF32 off, as phase 6 checks: the
+    # plain versions' cuDNN convs would run in TF32 by default.
+    dist.barrier()
+    if rank == 0 and on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        res["16a"]["rows"] = {name: [check_kernel(torch, card, name, k16[name],
+                                                  "view rank 0 " + call_label(name, i, a), a, k)
+                                     for i, (a, k) in enumerate(calls)]
+                              for name, calls in rec.items()}
+    dist.barrier()
+    del model, fn, rec, imgs, projs, dv, depth, conf
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 16b. The step at data 2, SyncBN: this rank's TRAIN_MICRO / 2 samples of each
+    # micro-batch, as micro-batches of that many.
+    def step_run(layout, norm, micro, share):
+        cfg = _par_config(norm, micro)
+        model = build_model(cfg.arch, device=device, train=True, layout=layout)
+        random_init_(model, torch.Generator().manual_seed(1))
+        step = TrainStep(model, cfg, seed=0)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        recorded, k78 = None, train_kernel_specs(None)
+        if rank == 0 and norm == "GN" and on_card:
+            (recorded, metrics), counts, ms = driven(record_calls, torch, k78, step, share)
+        else:
+            metrics, counts, ms = driven(step, share)
+        out = {"metrics": metrics, "launches": counts, "first_ms": ms, "peak_gb": peak_gb(),
+               "grads": {n: p.grad.detach().to("cpu", copy=True)
+                         for n, p in model.named_parameters() if p.grad is not None},
+               "buffers": {n: t.detach().to("cpu", copy=True) for n, t in model.named_buffers()
+                           if t.is_floating_point()}}
+        _, _, out["ms"] = driven(step, share)  # a second step, timed
+        dist.barrier()  # K7/K8's checks below time the card without the other rank
+        if recorded is not None:
+            nst = len(cfg.arch.ndepths)
+            out["rows"] = {name: [check_kernel(
+                torch, card, name, k78[name], f"view rank 0 micro{i // nst + 1} "
+                + call_label(name, i % nst, a), a, k) for i, (a, k) in enumerate(calls)]
+                for name, calls in recorded.items()}
+        dist.barrier()
+        return out
+
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    layout = make_layout(PAR_RANKS, 1)
+    res["16b"] = step_run(layout, "BN", TRAIN_MICRO // PAR_RANKS,
+                          _rank_share(torch, batch, layout.data_index, PAR_RANKS, TRAIN_MICRO))
+    if on_card:
+        torch.cuda.empty_cache()
+    # 16c. The step at view 2 under GN: every sample, the reference and half the sources.
+    res["16c"] = step_run(make_layout(1, PAR_RANKS), "GN", TRAIN_MICRO, batch)
+    torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+class Torchrun:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> <args>`, started from the repo's root in a session of its own,
+    its output to chiprun_out/<log_name>.log; a thread notes when it ends.
+    `wait` gives it until `timeout` seconds after its start, then kills the
+    whole session (torchrun and its ranks); it raises if any rank failed
+    and returns the launch's seconds. Several may run at once (each
+    --standalone launch takes a free port of its own)."""
+
+    def __init__(self, args, log_name, nproc=PAR_RANKS, timeout=PAR_TIMEOUT_S):
+        here = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+        self.args, self.timeout = args, timeout
+        self.log = os.path.join(here, "chiprun_out", f"{log_name}.log")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}"] + args
+        self.t0, self.t_end = time.perf_counter(), None
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen(cmd, cwd=here, stdout=f, stderr=subprocess.STDOUT,
+                                         start_new_session=True)
+        self.watch = threading.Thread(target=self._end, daemon=True)
+        self.watch.start()
+
+    def _end(self):
+        self.proc.wait()
+        self.t_end = time.perf_counter()
+
+    def wait(self):
+        import signal
+
+        left = self.timeout - (time.perf_counter() - self.t0)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+            rc = None
+        self.watch.join()
+        seconds = self.t_end - self.t0
+        if rc != 0:
+            with open(self.log) as f:
+                print(f.read()[-8000:], file=sys.stderr)
+            raise RuntimeError(f"torchrun {' '.join(self.args[:3])} ... "
+                               + ("passed its time limit" if rc is None else f"exited {rc}"))
+        return seconds
+
+    def kill(self):
+        """End the session if it still runs (a failure elsewhere)."""
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+
+def serial_ddp_grads(torch, model, batch, micro, shards, arch):
+    """The serial model's step on `batch` with the data-parallel loss:
+    micro-batches of `micro` samples, each one training forward (BN over
+    the whole micro-batch, as SyncBN gives the data ranks) whose loss is
+    the mean of its `shards` equal shards' masked means
+    (tests/test_parallel.py:60-76); the gradients summed over the
+    micro-batches and divided by their number. -> (loss, {param: grad})."""
+    from mvsformer_torch import fp32_math
+    from mvsformer_torch.ops.losses import total_loss
+    from mvsformer_torch.train.step import STAGE_KEYS, _map
+
+    keys = STAGE_KEYS[:len(arch.ndepths)]
+    n_micro, per = batch["imgs"].shape[0] // micro, micro // shards
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss_sum = 0.0
+    with fp32_math():
+        for m in range(n_micro):
+            mb = _map(batch, lambda t: t[m * micro:(m + 1) * micro])
+            out = model(mb["imgs"], mb["proj_matrices"], mb["depth_values"])
+            loss = 0.0
+            for i in range(shards):
+                sl = slice(i * per, (i + 1) * per)
+                o = {k: {f: t[sl] for f, t in out[k].items()} for k in keys}
+                dv = mb["depth_values"][sl]
+                part, _ = total_loss(o, {k: mb["depth_gt"][k][sl] for k in keys},
+                                     {k: mb["mask"][k][sl] for k in keys}, dv[:, 1] - dv[:, 0],
+                                     depth_type=arch.depth_type, focal=arch.focal,
+                                     gamma=arch.gamma, inverse_depth=arch.inverse_depth,
+                                     mask_out_range=arch.mask_out_range, stage_keys=keys)
+                loss = loss + part / shards
+            loss.backward()
+            loss_sum += float(loss.detach())
+    grads = {n: p.grad.detach() / n_micro for n, p in model.named_parameters()
+             if p.grad is not None}
+    return loss_sum / n_micro, grads
+
+
+def compare_grid_step(torch, card, label, got, want_loss, want_grads, want_buffers):
+    """A grid step's averaged gradients against the serial ones, per layer
+    group by `grad_group_check` at PAR_GRAD_BOUND (its mutants rejected),
+    the loss at STEP_LOSS_RTOL and the running statistics at phase 10's
+    bounds. Raises on a failure; returns the readings."""
+    import numpy as np
+
+    m = got["metrics"]
+    loss_err = abs(m["loss"] - want_loss) / abs(want_loss)
+    if set(got["grads"]) != set(want_grads):
+        raise RuntimeError(f"{label}: the ranks' gradients name other tensors than the "
+                           f"serial step's")
+    groups = {}
+    for g in STEP_GROUPS:
+        names = sorted(n for n in want_grads if n.startswith(g + "."))
+        if not names:
+            continue
+        a = torch.cat([got["grads"][n].double().reshape(-1) for n in names]).numpy()
+        bb = torch.cat([want_grads[n].double().cpu().reshape(-1) for n in names]).numpy()
+        ok, r = grad_group_check(a, bb, bound=PAR_GRAD_BOUND)
+        caught = [k for k, mut in grad_mutants(a).items()
+                  if not grad_group_check(mut, bb, bound=PAR_GRAD_BOUND)[0]]
+        r.update(ok=ok, mutants_rejected=len(caught))
+        groups[g] = r
+        if not ok or len(caught) != len(grad_mutants(a)):
+            raise RuntimeError(f"{label} {g}: gradients {r} against the serial step "
+                               f"(bound {PAR_GRAD_BOUND:g}; mutants rejected {caught})")
+    stats = {n: float((got["buffers"][n] - t.cpu()).abs().max()
+                      / (STEP_STATS_ATOL + STEP_STATS_RTOL * t.abs().max().cpu()))
+             for n, t in want_buffers.items()}
+    worst_stat = max(stats, key=stats.get, default=None)
+    stats_err = stats.get(worst_stat, 0.0)
+    print(f"{label}: loss {m['loss']:.6f} against the serial {want_loss:.6f} ({loss_err:.2e} "
+          f"relative, bound {STEP_LOSS_RTOL:g}); gradients per group (relative L2 / 1 - cosine"
+          f" / norm ratio, bound {PAR_GRAD_BOUND:g}, 5 mutants rejected in each): "
+          + ", ".join(f"{g} {r['err']:.2e}/{1 - r['cos']:.1e}/{r['norm']:.5f}"
+                      for g, r in groups.items())
+          + f"; running statistics at {stats_err:.3f} of phase 10's bound (the worst "
+          f"{worst_stat}) [{card}]", flush=True)
+    if loss_err > STEP_LOSS_RTOL or stats_err > 1.0 or not np.isfinite(m["grad_norm"]):
+        raise RuntimeError(f"{label}: the loss or the running statistics disagree with the "
+                           f"serial step")
+    return {"loss_err": loss_err, "groups": groups, "stats_err_of_bound": stats_err}
+
+
+def parallel_phase(torch, card, specs, serial, device="cuda"):
+    """Phase 16. `specs`: phase 4's K1-K6 specs; `serial`: phase 4's
+    request's (depth, confidence). Returns {"rows": the kernels' checked
+    launches at the ranks' shapes, "launches": the ranks' launches in their
+    driven runs, "details": ...}."""
+    import math
+    import shutil
+
+    import numpy as np
+
+    from mvsformer_torch.config import Config, save_config
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.train.step import TrainStep
+    from mvsformer_torch.utils.pfm import read_pfm
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    dev_arg = device if device == "cpu" else "cuda:0"
+    rows, launches = {}, {}
+
+    def add_launches(counts):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    try:
+        # 16a-16c: one torchrun launch of two ranks (the kernels are built: phase 2).
+        job = os.path.join(root, "job.json")
+        with open(job, "w") as f:
+            json.dump(_grid_job(root), f)
+        ranks_s = Torchrun([os.path.join(here, "chip_smoke.py"), "--parallel-rank", job, card,
+                            dev_arg], "parallel_ranks").wait()
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PAR_RANKS)]
+        print(f"16a-16c: {PAR_RANKS} gloo ranks on {dev_arg} in {ranks_s:.1f} s "
+              f"(their start included) [{card}]", flush=True)
+
+        # 16a. Against phase 4's serial request.
+        errs = []
+        for r in ranks:
+            a = r["16a"]
+            errs.append((float((a["depth"] - serial[0].cpu()).abs().max()),
+                         float((a["conf"] - serial[1].cpu()).abs().max())))
+            want = {n: s["per_request"] for n, s in specs.items()} if device != "cpu" else {}
+            if a["launches"] != want:
+                raise RuntimeError(f"16a rank {r['rank']}: launches {a['launches']}, "
+                                   f"want {want}")
+            add_launches(a["launches"])
+            print(f"16a rank {r['rank']}: request {a['ms']:.1f} ms (gloo all-reduces of the view "
+                  f"sums included), peak {a['peak_gb']:.3f} GB; launches {a['launches']}; K1 "
+                  f"source shapes [B, Vs, h, w, C] {a['k1_shapes']} [{card}]", flush=True)
+        rows.update(ranks[0]["16a"].get("rows", {}))
+        worst_d, worst_c = max(e[0] for e in errs), max(e[1] for e in errs)
+        # The ranks regularise the same all-reduced volume, but cuDNN's
+        # transposed 3D convs are not deterministic (ROADMAP C): the ranks
+        # agree within the same bounds, not bit for bit.
+        between = (max(float((r["16a"]["depth"] - ranks[0]["16a"]["depth"]).abs().max())
+                       for r in ranks),
+                   max(float((r["16a"]["conf"] - ranks[0]["16a"]["conf"]).abs().max())
+                       for r in ranks))
+        print(f"16a view 2 against phase 4's serial request: depth {worst_d:.3e}, confidence "
+              f"{worst_c:.3e}; the ranks against each other: depth {between[0]:.3e}, "
+              f"confidence {between[1]:.3e} (bounds {E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})",
+              flush=True)
+        if max(worst_d, between[0]) > E2E_DEPTH_ATOL or max(worst_c, between[1]) > E2E_CONF_ATOL:
+            raise RuntimeError("16a: the view-split request disagrees with the serial one")
+
+        # 16b and 16c. Against the serial step on the same weights and batch.
+        batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                                with_gt=True)
+        checks = {}
+        for key, norm, data in (("16b", "BN", PAR_RANKS), ("16c", "GN", 1)):
+            cfg = _par_config(norm, TRAIN_MICRO)
+            model = build_model(cfg.arch, device=device, train=True)
+            random_init_(model, torch.Generator().manual_seed(1))
+            if data > 1:
+                loss, grads = serial_ddp_grads(torch, model, batch, TRAIN_MICRO, data, cfg.arch)
+            else:
+                loss = TrainStep(model, cfg, seed=0)(batch)["loss"]
+                grads = {n: p.grad.detach() for n, p in model.named_parameters()
+                         if p.grad is not None}
+            buffers = {n: t.detach() for n, t in model.named_buffers() if t.is_floating_point()}
+            want_train = {"warp_corr_fwd": 0, "warp_corr_bwd": 0} if device == "cpu" else {
+                n: len(cfg.arch.ndepths) * TRAIN_B // TRAIN_MICRO
+                for n in ("warp_corr_fwd", "warp_corr_bwd")}
+            for r in ranks:
+                got = r[key]
+                counts = {n: got["launches"].get(n, 0) for n in want_train}
+                extra = {n: c for n, c in got["launches"].items() if n not in want_train}
+                if counts != want_train or extra:
+                    raise RuntimeError(f"{key} rank {r['rank']}: launches {got['launches']}, "
+                                       f"want {want_train}")
+                add_launches(got["launches"])
+                print(f"{key} rank {r['rank']} ({norm}, "
+                      + (f"data {data}: {TRAIN_B // data} samples as micro-batches of "
+                         f"{TRAIN_MICRO // data}" if data > 1 else
+                         f"view {PAR_RANKS}: {TRAIN_B} samples, 1 + "
+                         f"{(TRAIN_V - 1) // PAR_RANKS} views")
+                      + f"): first step {got['first_ms']:.1f} ms, second {got['ms']:.1f} ms, "
+                      f"peak {got['peak_gb']:.2f} GB; launches {got['launches']}; loss "
+                      f"{got['metrics']['loss']:.6f}, grad norm {got['metrics']['grad_norm']:.5f}"
+                      f" [{card}]", flush=True)
+                checks.setdefault(key, []).append(compare_grid_step(
+                    torch, card, f"{key} rank {r['rank']}", got, loss, grads, buffers))
+            del model, grads, buffers
+            if device != "cpu":
+                torch.cuda.empty_cache()
+        for name, rs in ranks[0]["16c"].get("rows", {}).items():
+            rows[name] = rs
+        ranks_meta = [{k: r[k] for k in ("16a", "16b", "16c")} for r in ranks]
+        for r in ranks_meta:
+            for k in ("16b", "16c"):
+                r[k] = {f: v for f, v in r[k].items() if f not in ("grads", "buffers", "rows")}
+            r["16a"] = {f: v for f, v in r["16a"].items() if f not in ("depth", "conf", "rows")}
+        del batch, ranks
+
+        # 16d. The CLIs under torchrun: the three launches run at once, beside
+        # the serial test CLI in this process (their times overlap).
+        import dataclasses
+
+        data = os.path.join(root, "dtu")
+        write_dtu_train_tree(data, PAR_TRAIN_VIEWS, img_hw=PAR_TRAIN_IMG_HW)
+        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        listfile = os.path.join(root, "scans.txt")
+        with open(listfile, "w") as f:
+            f.write("scan1\n")
+        cfg = Config()
+        cfg.data.datapath = data
+        cfg.data.train_data_list = cfg.data.val_data_list = listfile
+        cfg.data.height, cfg.data.width = PAR_TRAIN_HW
+        cfg.data.resize_scale = 0.5
+        cfg.data.multi_scale_args.scales = [list(PAR_TRAIN_HW)]
+        cfg.trainer.epochs, cfg.trainer.logging_every = 1, 1
+        cfg.trainer.save_dir = os.path.join(root, "saved")
+        configs = {}
+        # data 2: batch 8, 4 a rank as 2 micro-batches; NCCL, world 1: batch 16 as 4.
+        for name, batch, micro in (("grid", 8, 2), ("nccl", 16, 4)):
+            cfg.name, cfg.data.batch_size = name, batch
+            cfg.data.multi_scale_args.scale_batch_map = {str(PAR_TRAIN_HW[0]): micro}
+            configs[name] = os.path.join(root, f"{name}.json")
+            save_config(cfg, configs[name])
+        model = build_model(cfg.arch, device="cpu")
+        random_init_(model, torch.Generator().manual_seed(0))
+        ckpt = os.path.join(root, "model.pth")
+        torch.save({"state_dict": model.state_dict()}, ckpt)
+        with open(os.path.join(root, "config.json"), "w") as f:
+            json.dump({"arch": dataclasses.asdict(cfg.arch)}, f)
+        del model
+
+        def test_args(out):
+            return ["--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", root,
+                    "--torch_ckpt", ckpt, "--outdir", out, "--skip_fusion", "--max_h", str(H),
+                    "--max_w", str(W), "--ndepths", str(NDEPTH_FULL), "--num_view",
+                    str(PIPE_NUM_VIEW), "--dtype", "fp32"]
+
+        nccl = device != "cpu"
+        dev_flag = ["--device", dev_arg]
+        launches_16d = {
+            "train": Torchrun(["-m", "mvsformer_torch.train", "--config", configs["grid"],
+                               "--data_parallel", str(PAR_RANKS), "--dist_backend", "gloo"]
+                             + dev_flag, "parallel_train_cli"),
+            "test": Torchrun(["-m", "mvsformer_torch.test"] + test_args(
+                os.path.join(root, "grid_out")) + ["--view_parallel", str(PAR_RANKS),
+                                                   "--dist_backend", "gloo"] + dev_flag,
+                "parallel_test_cli"),
+            "nccl": Torchrun(["-m", "mvsformer_torch.train", "--config", configs["nccl"],
+                              "--dist_backend", "nccl" if nccl else "gloo", "--dtype", "fp32"]
+                             + ([] if nccl else dev_flag), "parallel_nccl_cli", nproc=1)}
+        try:
+            from mvsformer_torch import test as test_cli
+
+            t0 = time.perf_counter()
+            test_cli.main(test_args(os.path.join(root, "serial")) + ["--device", dev_arg])
+            serial_s = time.perf_counter() - t0
+            cli_s = {k: run.wait() for k, run in launches_16d.items()}
+        finally:
+            for run in launches_16d.values():
+                run.kill()
+
+        # The train CLI at data 2: rank 0 alone writes the run dir.
+        run_dir = os.path.join(cfg.trainer.save_dir, "models", "grid")
+        recs = read_records(run_dir)
+        steps = [r for r in recs if r["kind"] == "step"]
+        # 21 samples padded to 22: 11 a rank, 2 steps of 4 (dropping 3).
+        want_steps = (PAR_TRAIN_VIEWS * DTU_LIGHTS + 1) // PAR_RANKS // (8 // PAR_RANKS)
+        files = sorted(os.listdir(run_dir))
+        want_files = sorted(["config.json", "info.log", "train_log.jsonl", "model_best.pth",
+                             "model_best.meta.json", "model_last.pth", "model_last.meta.json"])
+        if ([r["global_step"] for r in steps] != list(range(1, want_steps + 1))
+                or not all(math.isfinite(r["loss"]) for r in steps)
+                or [r["kind"] for r in recs].count("val") != 1 or files != want_files):
+            raise RuntimeError(f"16d train CLI at data {PAR_RANKS}: records "
+                               f"{[(r['kind'], r.get('global_step')) for r in recs]}, files "
+                               f"{files}")
+        val = next(r for r in recs if r["kind"] == "val")
+        for r in recs:
+            add_launches(r.get("launches", {}))
+        print(f"16d train CLI, data {PAR_RANKS} (gloo, {dev_arg}, bf16, the CLI's default): "
+              f"{cli_s['train']:.1f} s; "
+              f"{len(steps)} steps, each recorded once by rank 0 (loss "
+              + ", ".join(f"{r['loss']:.5f}" for r in steps) + f"; ms "
+              + ", ".join(f"{r['ms']:.0f}" for r in steps)
+              + f"), one validation (mean error {val['mean_error']:.4f}); the run dir holds "
+              f"one set: {files} [{card}]", flush=True)
+
+        # The test CLI at view 2 against the serial CLI, on phase 11's plane scan.
+        def tree(top):
+            return sorted(os.path.relpath(os.path.join(d, f), top)
+                          for d, _, fs in os.walk(top) for f in fs)
+
+        one, two = tree(os.path.join(root, "serial")), tree(os.path.join(root, "grid_out"))
+        if one != two or not one:
+            raise RuntimeError(f"16d test CLI: the view-split run wrote {len(two)} files, the "
+                               f"serial one {len(one)}, or other names")
+        gaps = [0.0, 0.0]
+        for f in one:
+            if f.endswith(".pfm"):
+                a, b = (read_pfm(os.path.join(root, d, f))[0] for d in ("serial", "grid_out"))
+                gaps[0] = max(gaps[0], float(np.abs(a - b).max()))
+            elif f.endswith(".npy"):
+                a, b = (np.load(os.path.join(root, d, f)) for d in ("serial", "grid_out"))
+                gaps[1] = max(gaps[1], float(np.abs(a - b).max()))
+        print(f"16d test CLI, view {PAR_RANKS} (gloo, {dev_arg}, fp32, {PIPE_NUM_VIEW} views a "
+              f"request at {H}x{W}): {cli_s['test']:.1f} s (serial {serial_s:.1f} s in this "
+              f"process); the same {len(one)} files; depth {gaps[0]:.3e}, confidence "
+              f"{gaps[1]:.3e} from the serial CLI's (bounds {E2E_DEPTH_ATOL:g}, "
+              f"{E2E_CONF_ATOL:g}) [{card}]", flush=True)
+        if gaps[0] > E2E_DEPTH_ATOL or gaps[1] > E2E_CONF_ATOL:
+            raise RuntimeError("16d: the view-split test CLI disagrees with the serial one")
+
+        # The train CLI at world 1 on NCCL, one step.
+        recs = read_records(os.path.join(cfg.trainer.save_dir, "models", "nccl"))
+        steps = [r for r in recs if r["kind"] == "step"]
+        if len(steps) != 1 or not math.isfinite(steps[0]["loss"]):
+            raise RuntimeError(f"16d train CLI on nccl: {recs}")
+        for r in recs:
+            add_launches(r.get("launches", {}))
+        where = "cuda:LOCAL_RANK" if nccl else dev_arg
+        print(f"16d train CLI, world 1 on {'nccl' if nccl else 'gloo'} ({where}): "
+              f"{cli_s['nccl']:.1f} s; one step, loss {steps[0]['loss']:.5f}; its validation "
+              f"all-reduced on the backend [{card}]", flush=True)
+        details = {"ranks_s": ranks_s, "16a_errors": errs, "16a_between_ranks": between,
+                   "16a": [{k: r["16a"][k] for k in ("ms", "peak_gb", "launches", "k1_shapes")}
+                           for r in ranks_meta],
+                   "16bc_ranks": [{k: {f: r[k][f] for f in ("first_ms", "ms", "peak_gb",
+                                                            "launches", "metrics")}
+                                   for k in ("16b", "16c")} for r in ranks_meta],
+                   "16bc": checks,
+                   "train_cli_s": cli_s["train"], "test_cli_s": cli_s["test"],
+                   "serial_test_cli_s": serial_s, "test_cli_gaps": gaps,
+                   "nccl_cli_s": cli_s["nccl"],
+                   "phase_s": time.perf_counter() - t_phase}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 16 (the process grid): {details['phase_s']:.1f} s [{card}]", flush=True)
+    return {"rows": rows, "launches": launches, "details": details}
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one rank of phase 16, started by torchrun
+        parallel_rank(*sys.argv[2:5])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU",
               file=sys.stderr)
@@ -3324,11 +3943,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16 = bf16_phase(torch, card, specs)
 
+    # 16. The process grid: data and view parallelism, the ranks on this card.
+    torch.cuda.empty_cache()
+    grid = parallel_phase(torch, card, specs, serial=(depth, conf))
+
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino, variants, bf16):
+    for phase in (run, dino, variants, bf16, grid):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -3355,6 +3978,7 @@ def main() -> int:
         "variants": dict(variants["details"], rows=variants["rows"],
                          launches=variants["launches"]),
         "bf16": dict(bf16["details"], rows=bf16["rows"], launches=bf16["launches"]),
+        "parallel": dict(grid["details"], rows=grid["rows"], launches=grid["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

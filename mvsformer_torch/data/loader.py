@@ -15,7 +15,8 @@ which the threads reach it (ROADMAP E5); with one worker they are the
 serial draws.
 
 `eval_loader` is the test pipeline's loader: a `torch.utils.data.DataLoader`
-in dataset order, the last batch kept partial.
+in dataset order (a data rank's share of it), the last batch kept partial.
+`ViewGroupLoader` shares a loader's batches over a view group.
 """
 
 from __future__ import annotations
@@ -43,8 +44,11 @@ def collate(samples):
     return out
 
 
-def eval_loader(dataset, batch_size=1):
-    """Batches of `dataset` in order, read in the calling process."""
+def eval_loader(dataset, batch_size=1, indices=None):
+    """Batches of `dataset` in order (of its `indices` only, where given:
+    a data rank's share), read in the calling process."""
+    if indices is not None:
+        dataset = torch.utils.data.Subset(dataset, list(indices))
     return torch.utils.data.DataLoader(
         dataset, batch_size=batch_size, shuffle=False, drop_last=False, collate_fn=collate)
 
@@ -137,3 +141,41 @@ class MVSLoader:
         finally:
             stop.set()
             t.join(timeout=60)
+
+
+class ViewGroupLoader:
+    """A loader shared by the ranks of a view group (`parallel/mesh.Layout`
+    with view > 1), which must train on the same samples: the rank at view
+    index 0 iterates `loader` and broadcasts each batch over the group, the
+    others receive them. Every rank builds `loader` alike (the same host
+    share), so its length and epochs agree; the broadcast keeps the
+    samples equal where the dataset's draws would not be (its workers
+    share one generator, E5)."""
+
+    def __init__(self, loader, layout):
+        self.loader = loader
+        self.layout = layout
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    @property
+    def load_ms(self):
+        return self.loader.load_ms
+
+    def __iter__(self):
+        import torch.distributed as dist
+
+        lead, group = self.layout.view_lead, self.layout.view_group
+        if self.layout.rank == lead:
+            for batch in self.loader:
+                dist.broadcast_object_list([batch], src=lead, group=group)
+                yield batch
+        else:
+            for _ in range(len(self.loader)):
+                box = [None]
+                dist.broadcast_object_list(box, src=lead, group=group)
+                yield box[0]

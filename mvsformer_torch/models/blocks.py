@@ -102,11 +102,42 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
     torch's batch norm updates the running statistics in its own pass over
     the batch but puts the unbiased variance, n/(n-1) times larger, into
     `running_var`; the batch's share of it is scaled back on the [C] vector.
+
+    With a `data_group` (set by the model's layout, `parallel/mesh.py`)
+    training synchronises the statistics over the data ranks, as flax's
+    `BatchNorm(axis_name="data")` does: each rank's mean goes through a
+    differentiable all-reduce-mean, then each rank's mean square about that
+    global mean through another, which is the global biased variance; the
+    output is normalised by these global statistics and the running
+    statistics take them. (flax all-reduces E[x] and E[x^2] at once; their
+    difference cancels in fp32 where a channel's mean is large beside its
+    spread, and the serial batch norm's variance is two-pass, as this one
+    is. `torch.nn.SyncBatchNorm` would put the unbiased variance in the
+    running statistics, E3.)
     """
+
+    data_group = None
 
     def _check_input_dim(self, input):
         if input.dim() < 3:
             raise ValueError(f"expected a [N, C, ...] map, got {tuple(input.shape)}")
+
+    def _synced(self, x):
+        from mvsformer_torch.parallel.mesh import all_mean
+
+        x32 = f32(x)
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean = all_mean(x32.mean(dims), self.data_group)
+        centred = x32 - mean.view(shape)
+        var = all_mean(centred.square().mean(dims), self.data_group)
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        y = centred * mul.view(shape) + self.bias.view(shape)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
     def folded(self):
         inv = torch.rsqrt(self.running_var.float() + self.eps)
@@ -115,6 +146,8 @@ class FoldedBatchNorm(nn.modules.batchnorm._BatchNorm):
         return mul, add
 
     def forward(self, x):
+        if self.training and self.data_group is not None:
+            return self._synced(x)
         if self.training:
             # Copies go into the op: autograd keeps its inputs, and the
             # buffers change again below and at the next call.

@@ -140,13 +140,14 @@ def build_vit(arch: str, patch_size=16, qk_scale="default") -> DINOViT:
 class DINOMVSNet(CascadeMVSNet):
     always_average = True
 
-    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, layout=None):
         super().__init__(cfg, dtype)
         va = cfg.vit_args
         self.vit = build_vit(va.vit_arch, va.patch_size, va.qk_scale)
         vit_ch = va.vit_ch if isinstance(va.vit_ch, int) else 384
         self.decoder_vit = VITDecoderStage4Single(self.vit.embed_dim, self.vit.num_heads,
                                                   vit_ch, va.out_ch, cfg.norm_type)
+        self.use_layout(layout)
 
     def extract_features(self, imgs, generator=None):
         """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1), in

@@ -40,6 +40,7 @@ import torch.nn as nn
 
 from mvsformer_torch import fp32_math, resolve_device
 from mvsformer_torch.config import ModelConfig
+from mvsformer_torch.models.blocks import FoldedBatchNorm
 from mvsformer_torch.models.decoders import TwinDecoderStage4
 from mvsformer_torch.models.fpn import FPNDecoder, FPNEncoder
 from mvsformer_torch.models.stagenet import StageNet
@@ -62,6 +63,7 @@ class CascadeMVSNet(nn.Module):
 
     def __init__(self, cfg: ModelConfig, dtype=torch.float32):
         super().__init__()
+        self.layout = None
         if dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute dtype {dtype}: one of {COMPUTE_DTYPES}")
         self.cfg = cfg
@@ -72,6 +74,20 @@ class CascadeMVSNet(nn.Module):
         self.fusions = nn.ModuleList(
             StageNet(nd, cfg.base_ch, cfg.model_th, cfg.fusion_type, cfg.depth_type,
                      cfg.norm_type, cfg.attn_temp) for nd in cfg.ndepths)
+
+    def use_layout(self, layout) -> None:
+        """Run as one rank of `layout` (`parallel/mesh.Layout`; None runs
+        alone): training BN synchronised over its data group, and each
+        stage's view sums completed over its view group. The caller feeds
+        the model this rank's samples and views (`Layout.local_views`).
+        Parameters and buffers do not change, so a state dict moves freely
+        between the two."""
+        self.layout = layout
+        for m in self.modules():
+            if isinstance(m, FoldedBatchNorm):
+                m.data_group = layout.data_group if layout else None
+            elif isinstance(m, StageNet):
+                m.view_group = layout.view_group if layout else None
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -163,11 +179,12 @@ class CascadeMVSNet(nn.Module):
 
 
 class TwinMVSNet(CascadeMVSNet):
-    def __init__(self, cfg: ModelConfig, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, dtype=torch.float32, layout=None):
         super().__init__(cfg, dtype)
         self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
         self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
                                              cfg.vit_args.out_ch, cfg.norm_type)
+        self.use_layout(layout)
 
     def extract_features(self, imgs, generator=None):
         """imgs [N, 3, H, W] -> per-stage maps (stage1..4 at 1/8..1/1), in
@@ -187,14 +204,16 @@ DEPTH_TYPES = ("ce", "re", "was", "mixup_ce")
 
 
 def build_model(cfg: ModelConfig, device=None, train: bool = False,
-                dtype=torch.float32) -> CascadeMVSNet:
+                dtype=torch.float32, layout=None) -> CascadeMVSNet:
     """TwinMVSNet (`model_type` "twin") or DINOMVSNet ("dino") on `device`
     (`cuda` unless the caller asks for the CPU; raises if CUDA is asked for
     and absent), in eval mode, or in training mode with `train=True`, with
     fp32 parameters computing in `dtype`: torch.float32 or torch.bfloat16
-    (the JAX package's bf16 mode, with its fp32 islands). Raises
-    NotImplementedError for parts of the configuration that later slices
-    port, ValueError for values no model has."""
+    (the JAX package's bf16 mode, with its fp32 islands), as one rank of
+    `layout` (`parallel/mesh.Layout`, the JAX `build_model`'s `axis_name`
+    and `view_axis`; None runs alone). Raises NotImplementedError for parts
+    of the configuration that later slices port, ValueError for values no
+    model has."""
     dev = resolve_device(device)
     va, dino = cfg.vit_args, cfg.model_type == "dino"
     unsupported = {
@@ -212,8 +231,8 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False,
     if dino:
         from mvsformer_torch.models.dino import DINOMVSNet
 
-        return DINOMVSNet(cfg, dtype).to(dev).train(train)
-    return TwinMVSNet(cfg, dtype).to(dev).train(train)
+        return DINOMVSNet(cfg, dtype, layout).to(dev).train(train)
+    return TwinMVSNet(cfg, dtype, layout).to(dev).train(train)
 
 
 @torch.no_grad()

@@ -27,6 +27,14 @@ CNN as its modules with batch-statistics BN, once per view as the JAX view
 loop calls it (so its running statistics take one update per view); then
 `regression.decode_depth`. K1-K3 take folded BN or have no backward and
 run in eval only. The similarity diagnostic comes with a later slice.
+
+Under a view split (the model's layout, `parallel/mesh.py`) a stage gets
+the reference view and this rank's sources; `volume_sum` and the sum of
+the weights, both fp32, are completed by a differentiable all-reduce over
+the view group before the division (the JAX StageNet's psum over "view",
+stagenet.py:328-332), so every view rank regularises and decodes the
+same volume. The weights are each fusion's own (cnn, epipole and
+epipoleV2 alike).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from mvsformer_torch.ops.stage_tail import depth_decode
 from mvsformer_torch.ops.vis_net import visibility_net
 from mvsformer_torch.ops.warp_corr import warp_group_corr
 from mvsformer_torch.ops.warp_corr_train import WarpCorrTrain
+from mvsformer_torch.parallel.mesh import all_sum
 
 FUSION_TYPES = ("cnn", "epipole", "epipoleV2")
 
@@ -71,6 +80,8 @@ class VisibilityNet(nn.Sequential):
 
 
 class StageNet(nn.Module):
+    view_group = None  # the ranks that split the source views (parallel/mesh.py)
+
     def __init__(self, ndepth: int, base_ch: int = 8, model_th: int = 8,
                  fusion_type: str = "cnn", depth_type: str = "ce", norm: str = "BN",
                  attn_temp: float = 2.0):
@@ -143,12 +154,18 @@ class StageNet(nn.Module):
             corr, ent = warp_group_corr(ref_cl, src_cl, src_full, ref_full, dv, groups=G)
         w = self.view_weights(corr, ent, C, src_full, ref_full, dv, dt)
 
-        # Weighted view mean, accumulated view by view in the reference's order.
+        # Weighted view mean, accumulated view by view in the reference's order;
+        # under a view split each rank sums its own sources, and one
+        # all-reduce over the view group completes both sums.
         volume_sum = corr[:, 0] * w[:, 0]
         for v in range(1, corr.shape[1]):
             volume_sum.addcmul_(corr[:, v], w[:, v])
         del corr
-        volume_mean = volume_sum / (w.sum(dim=1) + 1e-6)
+        w_sum = w.sum(dim=1)
+        if self.view_group is not None:
+            volume_sum = all_sum(volume_sum, self.view_group)
+            w_sum = all_sum(w_sum, self.view_group)
+        volume_mean = volume_sum / (w_sum + 1e-6)
 
         logits = self.cost_reg(volume_mean.to(dt))[:, 0].float().contiguous()
         if self.training or self.depth_type not in ("ce", "was"):

@@ -13,14 +13,31 @@ fuses them into one PLY per scan by `pcd`, `dpcd` or `gipuma` filtering.
 JAX package's fp32 islands (`build_model`'s `dtype`); `--dtype fp32`
 computes in fp32 throughout.
 
+Several GPUs, one process each, under torchrun: `--data_parallel` ranks
+take disjoint shares of the reference views (-1, the default here, absorbs
+the processes `--view_parallel` leaves), and the `--view_parallel` ranks of
+a view group serve the same views with a block of the source views each
+(`num_view - 1` must divide; a `batch_size` that is not a multiple of the
+data size becomes the data size, as in the JAX CLI); rank 0 fuses:
+
+    torchrun --nproc_per_node 2 -m mvsformer_torch.test ... --view_parallel 2 \
+        --dist_backend nccl
+
 Departures from the JAX CLI:
-- `--device` (default `cuda`) replaces `--platform`.
+- `--device` (default `cuda`) replaces `--platform`; under torchrun `cuda`
+  means `cuda:LOCAL_RANK`, and a device with an index puts every rank on
+  that card (gloo only).
+- `--data_parallel` defaults to -1 (the JAX CLI's 1 idles the devices it
+  does not use; a spare process would wait for ever).
+- `--depth_parallel` above 1 raises: the cost volume's depth slabs are not
+  ported (ROADMAP A5b).
+- `--dist_backend` (nccl by default on CUDA, gloo on the CPU; nccl needs
+  one card per rank) and `--dist_url` (default env://) start the process
+  group.
 - Weights come from `<ckpt_dir>/<which_ckpt>.pth`, a checkpoint that
   `python -m mvsformer_torch.train` wrote, or from `--torch_ckpt` (a
   reference `.pth`); the JAX package's orbax checkpoint directories are not
   read (ROADMAP A4).
-- `--data_parallel`, `--view_parallel` and `--depth_parallel` above 1 are
-  not ported (ROADMAP A5).
 - The scans' images must be PNG, PPM or PGM (under their `.jpg` names is
   fine): the port decodes no JPEG (ROADMAP A3), and saves `images/*.jpg`
   as PNG bytes.
@@ -38,9 +55,9 @@ def parse_args(argv=None):
         epilog="Departures from the JAX package's test.py: --device replaces --platform; "
                "weights come from "
                "<ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (orbax restore: ROADMAP A4); "
-               "--data_parallel, "
-               "--view_parallel and --depth_parallel above 1 (ROADMAP A5) are not ported; "
-               "input images must be PNG, "
+               "--data_parallel defaults to -1; --depth_parallel above 1 (ROADMAP A5b) is "
+               "not ported; --dist_backend and --dist_url start the process group under "
+               "torchrun; input images must be PNG, "
                "PPM or PGM (no JPEG decoder: ROADMAP A3), and images/*.jpg is written as PNG.")
     parser.add_argument("--dataset", default="dtu", choices=["dtu", "tt"])
     parser.add_argument("--testpath", required=True)
@@ -90,12 +107,19 @@ def parse_args(argv=None):
                         help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
     parser.add_argument("--batch_size", type=int, default=1,
                         help="reference views per inference batch")
-    parser.add_argument("--data_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
+    parser.add_argument("--data_parallel", type=int, default=-1,
+                        help="data ranks, each serving a share of the reference views (-1 = "
+                             "the processes left over after the view split)")
     parser.add_argument("--view_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
+                        help="view ranks per request; must divide num_view - 1")
     parser.add_argument("--depth_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
+                        help="above 1: not ported (ROADMAP A5b)")
+    parser.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                        help="process group backend (default nccl on CUDA, gloo on the CPU); "
+                             "nccl needs one card per rank")
+    parser.add_argument("--dist_url", default="env://",
+                        help="process group rendezvous (default env://: torchrun's "
+                             "MASTER_ADDR and MASTER_PORT)")
     parser.add_argument("--eval_view_chunk", type=int, default=0,
                         help="above 0: the backbone runs over chunks of this many views")
     return parser.parse_args(argv)
@@ -103,21 +127,25 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.data_parallel * args.view_parallel * args.depth_parallel > 1:
-        raise NotImplementedError("--data_parallel, --view_parallel and --depth_parallel "
-                                  "above 1 are not ported yet (ROADMAP A5)")
 
     import torch
 
-    from mvsformer_torch import resolve_device
     from mvsformer_torch.config import load_config
     from mvsformer_torch.data import scan_lists
     from mvsformer_torch.fuse import fuse_scan
     from mvsformer_torch.infer import save_depth
     from mvsformer_torch.models.mvsformer import build_model
+    from mvsformer_torch.parallel.mesh import start, stop
     from mvsformer_torch.utils.convert_weights import load_reference_checkpoint
 
-    device = resolve_device(args.device)
+    device, layout = start(args)
+    if (args.num_view - 1) % layout.view:
+        raise SystemExit(f"--num_view {args.num_view} needs num_view-1 divisible by "
+                         f"--view_parallel {layout.view}")
+    if args.batch_size % layout.data:
+        print(f"--batch_size {args.batch_size} is not a multiple of the {layout.data} data "
+              f"ranks: serving batches of {layout.data}")
+        args.batch_size = layout.data
     if args.testlist:
         with open(args.testlist) as f:
             testlist = [line.strip() for line in f if line.strip()]
@@ -133,7 +161,7 @@ def main(argv=None):
         if args.eval_view_chunk:
             cfg.arch.eval_view_chunk = args.eval_view_chunk
         dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-        model = build_model(cfg.arch, device=device, dtype=dtype)
+        model = build_model(cfg.arch, device=device, dtype=dtype, layout=layout)
         ckpt = args.torch_ckpt or os.path.join(args.ckpt_dir, args.which_ckpt + ".pth")
         if not os.path.isfile(ckpt):
             if os.path.isdir(os.path.join(args.ckpt_dir, args.which_ckpt)):
@@ -151,10 +179,10 @@ def main(argv=None):
         save_depth(model, testlist, args.testpath, args.outdir, num_view=args.num_view,
                    ndepths=args.ndepths, interval_scale=interval_scale, max_h=args.max_h,
                    max_w=args.max_w, tmps=tmps, dataset=args.dataset,
-                   batch_size=args.batch_size, combine_conf=args.combine_conf,
+                   batch_size=args.batch_size // layout.data, combine_conf=args.combine_conf,
                    use_short_range=args.use_short_range, device=device)
 
-    if not args.skip_fusion:
+    if not args.skip_fusion and layout.rank == 0:
         prob_threshold = [float(p) for p in args.prob_threshold.split(",")]
         for scan in testlist:
             kwargs = {"pcd": dict(thres_view=args.thres_view, dist_thresh=args.thres_disp),
@@ -165,6 +193,7 @@ def main(argv=None):
                       os.path.join(args.outdir, f"{scan}.ply"), method=args.filter_method,
                       prob_threshold=prob_threshold, n_src_views=args.fusion_src_views,
                       device=device, **kwargs)
+    stop()
 
 
 if __name__ == "__main__":

@@ -17,10 +17,30 @@ trains with validation and checkpoints in `save_dir/models/<name>/`, which holds
 checkpoints. `--resume` continues from that run dir's furthest checkpoint;
 `--finetune DIR` starts from another run's `--finetune_name` checkpoint.
 
+Several GPUs, one process each, under torchrun (`--dist_backend` nccl,
+the default on CUDA, needs one card per rank; gloo also runs on the CPU and
+may share a card):
+
+    torchrun --nproc_per_node 8 -m mvsformer_torch.train --config ... \
+        --data_parallel 4 --view_parallel 2 --dist_backend nccl
+
+`--data_parallel` (-1, the default, absorbs the processes that
+`--view_parallel` leaves) and `--view_parallel` lay the processes out as
+`make_mesh` lays out devices (`parallel/mesh.py`). Each data rank reads
+its share of every batch (the loader's host split, `batch_size / data`
+samples, which must divide) in per-device micro-batches of
+`scale_batch_map[height]`; the ranks of a view group train on the same
+samples (the first reads them and broadcasts them) with a block of the
+source views each. `--multi_host` lets the torchrun variables span nodes.
+
 Departures from the JAX CLI:
-- `--device` (default `cuda`) replaces `--platform`.
-- One device: `--data_parallel`, `--view_parallel` and `--depth_parallel`
-  above 1 and `--multi_host` are not ported (ROADMAP A5).
+- `--device` (default `cuda`) replaces `--platform`; under torchrun `cuda`
+  means `cuda:LOCAL_RANK`, and a device with an index puts every rank on
+  that card (gloo only).
+- `--depth_parallel` above 1 raises: the cost volume's depth slabs are not
+  ported (ROADMAP A5b).
+- `--dist_backend` and `--dist_url` (default env://, torchrun's
+  variables) choose the process group's backend and rendezvous.
 - No TensorBoard writer (the card's machine has no tensorboard package):
   the log and `train_log.jsonl` carry the scalars.
 - The model is built from the config alone, so no batch is read before
@@ -38,8 +58,8 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="MVSFormer training on PyTorch and CUDA",
         epilog="Departures from the JAX package's train.py: --device replaces --platform; "
-               "parallel axes above 1 and --multi_host "
-               "are not ported (ROADMAP A5); no TensorBoard writer.")
+               "--depth_parallel above 1 is not ported (ROADMAP A5b); --dist_backend and "
+               "--dist_url start the process group under torchrun; no TensorBoard writer.")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--data_path", type=str, default=None)
     parser.add_argument("--resume", action="store_true",
@@ -64,13 +84,21 @@ def parse_args(argv=None):
                         help="compute dtype: bf16 (the default) keeps the JAX package's fp32 "
                              "islands, with fp32 parameters, optimizer state and "
                              "checkpoints; fp32 computes in fp32 throughout")
-    parser.add_argument("--data_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
+    parser.add_argument("--data_parallel", type=int, default=-1,
+                        help="data ranks (-1 = the processes left over after the view "
+                             "split); must divide batch_size")
     parser.add_argument("--view_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
+                        help="view ranks per sample; must divide nviews - 1")
     parser.add_argument("--depth_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5)")
-    parser.add_argument("--multi_host", action="store_true", help="not ported (ROADMAP A5)")
+                        help="above 1: not ported (ROADMAP A5b)")
+    parser.add_argument("--multi_host", action="store_true",
+                        help="the torchrun processes span several nodes")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="process group backend (default nccl on CUDA, gloo on the CPU); "
+                             "nccl needs one card per rank")
+    parser.add_argument("--dist_url", type=str, default="env://",
+                        help="process group rendezvous (default env://: torchrun's "
+                             "MASTER_ADDR and MASTER_PORT)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default cuda; 'cpu' runs the plain PyTorch path)")
@@ -86,22 +114,19 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if max(args.data_parallel, args.view_parallel, args.depth_parallel) > 1 or args.multi_host:
-        raise NotImplementedError("--data_parallel, --view_parallel and --depth_parallel above "
-                                  "1 and --multi_host are not ported yet (ROADMAP A5)")
 
     import torch
 
-    from mvsformer_torch import resolve_device
     from mvsformer_torch.config import load_config, save_config
     from mvsformer_torch.data.blended import BlendedMVSDataset
     from mvsformer_torch.data.dtu import DTUMVSDataset
-    from mvsformer_torch.data.loader import MVSLoader
+    from mvsformer_torch.data.loader import MVSLoader, ViewGroupLoader
     from mvsformer_torch.models.mvsformer import build_model
+    from mvsformer_torch.parallel.mesh import start, stop
     from mvsformer_torch.train.trainer import Trainer
     from mvsformer_torch.utils.logging import setup_logging
 
-    device = resolve_device(args.device)
+    device, layout = start(args)
     overrides = {}
     if args.lr is not None:
         overrides["optimizer.lr"] = args.lr
@@ -113,9 +138,16 @@ def main(argv=None):
     if args.save_every_steps is not None:
         cfg.trainer.save_every_steps = args.save_every_steps
 
+    if cfg.data.batch_size % layout.data:
+        raise ValueError(f"batch_size {cfg.data.batch_size} does not split over "
+                         f"{layout.data} data ranks")
+    if (cfg.data.nviews - 1) % layout.view:
+        raise ValueError(f"nviews {cfg.data.nviews}: nviews - 1 source views do not split "
+                         f"over {layout.view} view ranks")
+    batch_size = cfg.data.batch_size // layout.data
     torch.manual_seed(args.seed)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    model = build_model(cfg.arch, device=device, train=True, dtype=dtype)
+    model = build_model(cfg.arch, device=device, train=True, dtype=dtype, layout=layout)
 
     is_blended = cfg.data.type == "BlendedLoader"
     ds_cls = BlendedMVSDataset if is_blended else DTUMVSDataset
@@ -129,18 +161,24 @@ def main(argv=None):
                           "scale_batch_map": msa.scale_batch_map},
         resize_scale=cfg.data.resize_scale, consist_crop=cfg.data.consist_crop, seed=args.seed)
     train_ds = ds_cls(cfg.data.datapath, cfg.data.train_data_list, "train",
-                      batch_size=cfg.data.batch_size, **dkw)
+                      batch_size=batch_size, **dkw)
     val_ds = ds_cls(cfg.data.datapath, cfg.data.val_data_list, "val", **dkw)
-    train_loader = MVSLoader(train_ds, cfg.data.batch_size, shuffle=cfg.data.shuffle,
-                             num_workers=cfg.data.num_workers, seed=args.seed)
-    val_loader = MVSLoader(val_ds, cfg.data.batch_size, shuffle=False, drop_last=False,
-                           num_workers=cfg.data.num_workers)
+    shard = dict(host_id=layout.data_index, num_hosts=layout.data)
+    train_loader = MVSLoader(train_ds, batch_size, shuffle=cfg.data.shuffle,
+                             num_workers=cfg.data.num_workers, seed=args.seed, **shard)
+    val_loader = MVSLoader(val_ds, batch_size, shuffle=False, drop_last=False,
+                           num_workers=cfg.data.num_workers, **shard)
     val_loader.set_epoch(0)
+    if layout.view > 1:
+        train_loader = ViewGroupLoader(train_loader, layout)
+        val_loader = ViewGroupLoader(val_loader, layout)
 
     run_dir = os.path.join(cfg.trainer.save_dir, "models", cfg.name)
-    os.makedirs(run_dir, exist_ok=True)
-    save_config(cfg, os.path.join(run_dir, "config.json"))
-    logger = setup_logging(run_dir)
+    logger = None
+    if layout.rank == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(cfg, os.path.join(run_dir, "config.json"))
+        logger = setup_logging(run_dir)
     profile = (args.profile_dir, args.profile_start, args.profile_steps) \
         if args.profile_dir else None
     trainer = Trainer(cfg, train_loader, val_loader, model=model, writer=None, logger=logger,
@@ -156,7 +194,9 @@ def main(argv=None):
         trainer.finetune(args.finetune, name=args.finetune_name,
                          restore_opt=not args.no_restore_opt,
                          reset_schedule=not args.keep_schedule)
-    return trainer.train(start_epoch, skip_batches)
+    history = trainer.train(start_epoch, skip_batches)
+    stop()
+    return history
 
 
 if __name__ == "__main__":

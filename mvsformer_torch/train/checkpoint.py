@@ -26,9 +26,12 @@ import torch
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str, monitor: str = "min mean_error", save_period: int = 1):
+    def __init__(self, ckpt_dir: str, monitor: str = "min mean_error", save_period: int = 1,
+                 write: bool = True):
         self.ckpt_dir = os.path.abspath(ckpt_dir)
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.write = write  # False: the policy runs (best, improved), no file is written
+        if write:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
         mode, metric = monitor.split()
         if mode not in ("min", "max"):
             raise ValueError(f"monitor mode must be min or max, got {mode!r}")
@@ -46,7 +49,11 @@ class CheckpointManager:
 
     def _save(self, name: str, state: dict, meta: dict):
         """Write `state` (with the meta's epoch and monitor_best) to
-        <name>.pth, then the sidecar, each through a temporary file."""
+        <name>.pth, then the sidecar, each through a temporary file. A
+        manager made with write=False (a data-parallel rank other than 0)
+        writes nothing."""
+        if not self.write:
+            return
         t0 = time.perf_counter()
         path = self.path(name)
         payload = dict(state, epoch=meta.get("epoch"), monitor_best=meta.get("monitor_best"))

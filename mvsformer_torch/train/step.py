@@ -27,15 +27,38 @@ scaler: bf16 has fp32's exponent range.
 a dict of tensors or arrays in the JAX layout:
 imgs [B, V, H, W, 3], proj_matrices {stageK: [B, V, 2, 4, 4]},
 depth_values [B, Dfull], depth_gt and mask {stageK: [B, h, w]}.
+
+A model built with a layout (`parallel/mesh.py`) makes the step one rank's
+part of `mvsformer_tpu/parallel/train_step.py`'s SPMD step:
+- the batch is this data rank's share (per-device micro-batches of
+  `scale_batch_map[height]`, as the reference's map is per GPU); a view
+  rank keeps the reference view and its block of the source views
+  (`split_ref_src` sharded over "view"; raises where V - 1 does not
+  divide);
+- the training forward synchronises BN over the data ranks and completes
+  the view sums over the view ranks, both by differentiable all-reduces;
+- after the micro-batches the summed gradients are averaged over the whole
+  world by one all-reduce per dtype (`mesh.mean_`): the JAX step's pmean
+  over "view" then "data" once per micro-batch, moved after the sum over
+  micro-batches, which it commutes with. Over "view" the mean is exact,
+  not a correction: upstream of the view sums each rank holds view x its
+  own views' share (the all-reduce's backward sums the cotangents),
+  downstream the full gradient (`correct_view_grads`);
+- the losses are averaged over the world, the BN buffers too after the
+  step, and the norm and the clip read the averaged gradients;
+- rank 0's parameters and buffers are broadcast when the step is built,
+  as DDP's constructor does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from mvsformer_torch import fp32_math
 from mvsformer_torch.config import Config
 from mvsformer_torch.ops.losses import total_loss
+from mvsformer_torch.parallel.mesh import mean_
 from mvsformer_torch.train.optim import build_optimizer
 
 STAGE_KEYS = ("stage1", "stage2", "stage3", "stage4")
@@ -83,6 +106,12 @@ class TrainStep:
             model_type=cfg.arch.model_type)
         self.params = [p for g in self.optimizer.param_groups for p in g["params"]]
         self.global_step = 0
+        layout = getattr(model, "layout", None)
+        self.layout = layout if layout is not None and layout.world > 1 else None
+        if self.layout is not None:
+            with torch.no_grad():
+                for t in list(model.parameters()) + list(model.buffers()):
+                    dist.broadcast(t, src=0)
 
     def generator(self, micro: int) -> torch.Generator:
         device = next(self.model.parameters()).device
@@ -98,6 +127,9 @@ class TrainStep:
         param = next(model.parameters())
         model.train()
         batch = _map(batch, lambda t: torch.as_tensor(t, dtype=param.dtype, device=param.device))
+        if self.layout is not None:
+            imgs, projs = self.layout.local_request(batch["imgs"], batch["proj_matrices"])
+            batch = dict(batch, imgs=imgs, proj_matrices=projs)
         micros = micro_batches(batch, self.cfg.data.multi_scale_args.scale_batch_map)
         stage_keys = STAGE_KEYS[:len(arch.ndepths)]
         self.optimizer.zero_grad(set_to_none=True)
@@ -120,12 +152,20 @@ class TrainStep:
             if len(micros) > 1:
                 for g in grads:
                     g.div_(len(micros))
+            if self.layout is not None:
+                mean_(grads)
+                losses = torch.tensor([sums[k] for k in sums], dtype=torch.float64,
+                                      device=param.device)
+                mean_([losses])
+                sums = dict(zip(sums, losses.tolist()))
             norm = torch.linalg.vector_norm(torch.stack(
                 [torch.linalg.vector_norm(g) for g in grads]))
             if self.cfg.optimizer.grad_norm is not None:
                 _clip_by_global_norm(grads, self.cfg.optimizer.grad_norm, norm)
             lr = next(g["lr"] for g in self.optimizer.param_groups if g["group"] == "rest")
             self.optimizer.step()
+        if self.layout is not None:
+            mean_([b for b in model.buffers() if b.is_floating_point()])
         self.scheduler.step()
         self.global_step += 1
         metrics = {("loss" if k == "loss" else f"loss_{k}"): v / len(micros)

@@ -21,11 +21,22 @@ training forward and loss, the backward, AdamW and the schedule):
   `no_grad`; the forward turns TF32 off itself), so validation is the
   path K1-K6 serve, and averages the validation metrics: DTU's threshold
   unit is the batch's first depth interval / 2.65, BlendedMVS's each
-  sample's own interval. With one device a trailing partial batch runs as
-  it is (the JAX trainer pads it to the data axis, ROADMAP A5).
+  sample's own interval. A trailing partial batch runs as it is (each
+  process runs its own; the JAX trainer pads it to its data axis).
 - `train` alternates them, checkpointing on `trainer.monitor`, every
   `eval_freq` epochs, and stops after `early_stop` validations without
   improvement.
+
+As one rank of the model's layout (`parallel/mesh.py`; the CLI gives each
+data rank its share of every batch, per-device micro-batches of
+`scale_batch_map[height]`, as the JAX trainer's host micro-batch of map x
+data splits over its data axis): the step averages over the world
+(`TrainStep`); the validation metrics are averaged over the processes
+whenever a process group is running (the reference's all_reduce / world,
+`mvsformer_trainer.py:202-212`), so every rank takes the same
+checkpoint and early-stop decisions; only rank 0 writes checkpoints, the
+log, `train_log.jsonl` and the profile; a resume or finetune waits at a
+barrier before it reads a checkpoint.
 
 The TensorBoard writer is optional (`writer=None` writes no scalar or
 image). Whatever the writer, every step, epoch, validation, checkpoint and
@@ -44,6 +55,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mvsformer_torch.config import Config
 from mvsformer_torch.ops import cuda_build
@@ -59,6 +71,16 @@ EVAL_TMPS = (5.0, 5.0, 5.0, 1.0)  # the eval forward's stage temperatures
 class _PrintLogger:
     def info(self, msg):
         print(msg, flush=True)
+
+
+class _QuietLogger:
+    def info(self, msg):
+        pass
+
+
+def _barrier() -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 def _launches_since(before: dict) -> dict:
@@ -115,10 +137,12 @@ class Trainer:
         self.model = model if model is not None else build_model(cfg.arch, device=device,
                                                                  train=True)
         self.device = next(self.model.parameters()).device
+        self.layout = getattr(self.model, "layout", None)
+        self.writes = self.layout is None or self.layout.rank == 0
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.writer = writer
-        self.logger = logger or _PrintLogger()
+        self.logger = logger or (_PrintLogger() if self.writes else _QuietLogger())
         self.is_blended = is_blended
         self.debug = debug
         self.profile = profile
@@ -128,7 +152,8 @@ class Trainer:
         self.seed = seed
         self.save_every_steps = cfg.trainer.save_every_steps
         self.run_dir = os.path.join(cfg.trainer.save_dir, "models", cfg.name)
-        self.ckpt = CheckpointManager(self.run_dir, cfg.trainer.monitor, cfg.trainer.save_period)
+        self.ckpt = CheckpointManager(self.run_dir, cfg.trainer.monitor, cfg.trainer.save_period,
+                                      write=self.writes)
         self.log_path = os.path.join(self.run_dir, "train_log.jsonl")
         self.step = None
         self._not_improved = 0
@@ -190,6 +215,7 @@ class Trainer:
         """Restore the furthest checkpoint: `model_step` (mid-epoch) when its
         global_step is ahead of `model_last`'s. Returns {"start_epoch",
         "skip_batches"}, or None without a checkpoint."""
+        _barrier()
         best_name, best_meta = None, {}
         for name in ("model_last", "model_step"):
             if self.ckpt.has(name):
@@ -218,7 +244,8 @@ class Trainer:
         with `restore_opt`; the step count (schedule and bias correction)
         reset to 0 with `reset_schedule`, else fast-forwarded to the
         checkpoint's global_step."""
-        mgr = CheckpointManager(ckpt_dir, self.cfg.trainer.monitor)
+        _barrier()
+        mgr = CheckpointManager(ckpt_dir, self.cfg.trainer.monitor, write=False)
         state, meta = mgr.restore(name)
         self.model.load_state_dict(state["state_dict"])
         saved_step = int(meta.get("global_step", 0))
@@ -239,6 +266,8 @@ class Trainer:
     # -- records -------------------------------------------------------------
 
     def _record(self, **rec):
+        if not self.writes:
+            return
         with open(self.log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -250,7 +279,7 @@ class Trainer:
     def _profile_tick(self):
         """Open the profile window at its first step; close it once it holds
         its steps, writing the Chrome trace and the device idle share."""
-        if self.profile is None:
+        if self.profile is None or not self.writes:
             return
         pdir, pstart, psteps = self.profile
         if self._profiler is None and not self._profiled and self.global_step >= pstart:
@@ -366,16 +395,18 @@ class Trainer:
         return out
 
     def _eval_forward(self, batch):
-        """(refined depth, confidence) of the eval forward on a loader batch."""
+        """(refined depth, confidence) of the eval forward on a loader batch
+        (this view rank's source views of it)."""
         stages = self._stages()
 
         def dev(x):
             return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
+        imgs, projs = dev(batch["imgs"]), {k: dev(batch["proj_matrices"][k]) for k in stages}
+        if self.layout is not None:
+            imgs, projs = self.layout.local_request(imgs, projs)
         with torch.no_grad():
-            out = self.model(dev(batch["imgs"]),
-                             {k: dev(batch["proj_matrices"][k]) for k in stages},
-                             dev(batch["depth_values"]), tmp=list(EVAL_TMPS))
+            out = self.model(imgs, projs, dev(batch["depth_values"]), tmp=list(EVAL_TMPS))
         return out["refined_depth"], out["photometric_confidence"]
 
     def valid_epoch(self, epoch: int) -> dict:
@@ -397,6 +428,11 @@ class Trainer:
         finally:
             self.model.train(was_training)
         out = meter.mean()
+        if dist.is_available() and dist.is_initialized():
+            keys = sorted(out)
+            vals = torch.tensor([out[k] for k in keys], dtype=torch.float64, device=self.device)
+            dist.all_reduce(vals)
+            out = dict(zip(keys, (vals / dist.get_world_size()).tolist()))
         out["mean_error"] = (out["thres2mm_error"] + out["thres4mm_error"]
                              + out["thres8mm_error"] + out["thres14mm_error"]) / 4.0
         load_ms = list(getattr(self.val_loader, "load_ms", []))

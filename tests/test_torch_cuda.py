@@ -786,3 +786,46 @@ def test_bf16_forward_on_the_card_runs_every_eval_kernel(dev):
     depth32, conf32, _ = make_infer_fn(m32)(*request)
     assert float((depth - depth32).abs().max()) <= 1.0
     assert float((conf - conf32).abs().max()) <= 5e-3
+
+
+def test_view_split_on_one_card_matches_the_serial_request(dev, tmp_path):
+    """chip_smoke.py's 16a at a toy size: two gloo ranks on this one card,
+    view 2 (the default widths, ndepths 8/4/4/2, 5 views, 64x64: 2 sources
+    a rank), each rank's depth and confidence within the card-to-CPU
+    bounds (1e-2, 1e-4) of the serial request on the card and of each
+    other (cuDNN's transposed 3D convs are not deterministic), and K1-K3
+    launched once a stage on each rank."""
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+
+    from test_torch_parallel_ranks import run_ranks, train_config
+
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.standard_normal((1, 5, 64, 64, 3)).astype(np.float32))
+    K = np.array([[80.0, 0, 16], [0, 80.0, 16], [0, 0, 1]], np.float32)
+    projs = {}
+    for s, scale in zip(range(1, 5), (1 / 8, 1 / 4, 1 / 2, 1.0)):
+        c = np.zeros((1, 5, 2, 4, 4), np.float32)
+        for v in range(5):
+            c[0, v, 0] = np.eye(4)
+            c[0, v, 0, 0, 3] = 2.0 * v
+            c[0, v, 1, :3, :3] = K * scale
+            c[0, v, 1, 2, 2] = c[0, v, 1, 3, 3] = 1.0
+        projs[f"stage{s}"] = torch.from_numpy(c)
+    dv = torch.linspace(425, 900, 48)[None]
+    model = random_init_(build_model(train_config("BN").arch, device="cpu"),
+                         torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "weights.pt")
+    torch.save((imgs, projs, dv), tmp_path / "request.pt")
+    depth, conf, _ = make_infer_fn(model.to(dev))(imgs, projs, dv)
+    ranks = run_ranks(tmp_path, 2, dict(kind="eval", data=1, view=2, device="cuda:0",
+                                        weights=str(tmp_path / "weights.pt"),
+                                        request=str(tmp_path / "request.pt"),
+                                        tmps=[5.0, 5.0, 5.0, 1.0]))
+    for r in ranks:
+        assert float((r["depth"] - depth.cpu()).abs().max()) <= 1e-2
+        assert float((r["conf"] - conf.cpu()).abs().max()) <= 1e-4
+        assert all(r["launches"].get(k) == 4 for k in ("warp_group_corr", "visibility_net",
+                                                       "depth_decode")), r["launches"]
+    assert float((ranks[0]["depth"] - ranks[1]["depth"]).abs().max()) <= 1e-2
+    assert float((ranks[0]["conf"] - ranks[1]["conf"]).abs().max()) <= 1e-4

@@ -43,6 +43,8 @@ TRAINING_MODULES = ("config", "data.dtu", "data.blended", "data.loader", "train.
                     "train.checkpoint", "train.optim", "train.step", "train.trainer",
                     "train.__main__", "utils.logging")
 TRAINING_LIBRARIES = ("orbax", "tensorboardX", "tensorboard", "torch.utils.tensorboard")
+# The process grid's modules (data and view parallelism, the dry run).
+PARALLEL_MODULES = ("parallel.mesh", "parallel.dryrun")
 
 
 def port_files():
@@ -113,7 +115,7 @@ def test_no_port_file_imports_an_image_library(path):
 
 def test_the_pipeline_modules_are_among_the_port_files():
     files = set(port_files())
-    for name in PIPELINE_MODULES + TRAINING_MODULES:
+    for name in PIPELINE_MODULES + TRAINING_MODULES + PARALLEL_MODULES:
         path = os.path.join(REPO, "mvsformer_torch", *name.split(".")) + ".py"
         assert path in files, name
 
@@ -132,7 +134,7 @@ def test_no_port_file_imports_orbax_or_tensorboard(path):
 def test_importing_the_pipeline_leaves_image_libraries_out_of_sys_modules():
     code = (
         "import importlib, sys\n"
-        f"for m in {PIPELINE_MODULES + TRAINING_MODULES!r}:\n"
+        f"for m in {PIPELINE_MODULES + TRAINING_MODULES + PARALLEL_MODULES!r}:\n"
         "    importlib.import_module('mvsformer_torch.' + m)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {IMAGE_LIBRARIES + FORBIDDEN!r}\n"
@@ -210,3 +212,15 @@ def test_load_config_reads_the_repo_configs_like_the_jax_package(name):
         f.name for f in dataclasses.fields(JaxModelConfig))
     assert set(f.name for f in dataclasses.fields(ViTConfig)) <= set(
         f.name for f in dataclasses.fields(JaxViTConfig))
+
+
+def test_importing_the_parallel_modules_starts_no_process_group():
+    """`mvsformer_torch.parallel` joins no group and spawns no process when
+    it is imported: the CLIs and the dry run do that when they run."""
+    code = ("import torch.distributed as dist\n"
+            "import mvsformer_torch.parallel.mesh, mvsformer_torch.parallel.dryrun\n"
+            "import multiprocessing as mp\n"
+            "assert not dist.is_initialized() and not mp.active_children()\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr

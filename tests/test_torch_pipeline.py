@@ -390,14 +390,18 @@ def test_cli_serves_in_bf16(tree, ckpt, tmp_path, argv):
     assert points.shape[0] > 0 and np.isfinite(points).all() and colors.shape == points.shape
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--data_parallel", "2"], "ROADMAP A5"),
-    (["--view_parallel", "2"], "ROADMAP A5"),
-    (["--which_ckpt", "orbax_best"], "ROADMAP A4"),
-])
-def test_cli_refuses_what_is_not_ported(tree, ckpt, tmp_path, argv, match):
+# The ids are the cases' names from when ROADMAP A5 refused the first two.
+@pytest.mark.parametrize("argv,error,match", [
+    (["--data_parallel", "2"], ValueError, "torchrun"),
+    (["--view_parallel", "2"], ValueError, "torchrun"),
+    (["--which_ckpt", "orbax_best"], NotImplementedError, "ROADMAP A4"),
+    (["--depth_parallel", "2"], NotImplementedError, "ROADMAP A5b"),
+], ids=["argv0-ROADMAP A5", "argv1-ROADMAP A5", "argv2-ROADMAP A4", "argv3-ROADMAP A5b"])
+def test_cli_refuses_what_is_not_ported(tree, ckpt, tmp_path, argv, error, match):
+    """Orbax checkpoints (A4) and the depth axis (A5b) are not ported; the
+    data and view axes are (A5), but one process cannot be a grid of two."""
     os.makedirs(os.path.join(ckpt["run"], "orbax_best"), exist_ok=True)  # a JAX checkpoint dir
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         port_cli.main(["--testpath", tree["data"], "--ckpt_dir", ckpt["run"], "--outdir",
                        str(tmp_path), "--device", "cpu"] + argv)
 
@@ -478,10 +482,16 @@ def test_a_dino_checkpoint_serves_through_the_cli(tree, tmp_path):
                                atol=CONF_ATOL)
 
 
-def test_save_depth_refuses_a_mesh_and_a_model_elsewhere(tree, saved, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+def test_save_depth_refuses_a_mesh_and_a_model_elsewhere(tree, saved, tmp_path, monkeypatch):
+    """A model laid out over view ranks that do not split the source views
+    (the mesh form's check), and a model on another device."""
+    from mvsformer_torch.parallel.mesh import Layout
+
+    monkeypatch.setattr(saved["model"], "layout", Layout(view=3))
+    with pytest.raises(ValueError, match="do not split over 3 view ranks"):
         port_infer.save_depth(saved["model"], ["scan1"], tree["data"], str(tmp_path),
-                              mesh=object(), device="cpu")
+                              device="cpu")
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="the model is on cpu"):
         port_infer.save_depth(saved["model"], ["scan1"], tree["data"], str(tmp_path),
                               device="meta")

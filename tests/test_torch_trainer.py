@@ -21,8 +21,9 @@ Port only:
   --which_ckpt model_best` evaluates what it saved, equal to
   `make_infer_fn` of the restored model (on `chip_smoke.write_dtu_scan`'s
   PNG scan);
-- what the CLI does not port raises, naming the ROADMAP item, and the
-  default device is `cuda`.
+- what the CLI does not port raises, naming the ROADMAP item (the depth
+  axis, A5b), a grid the processes cannot fill raises naming torchrun, and
+  the default device is `cuda`.
 """
 
 import copy
@@ -301,14 +302,19 @@ def test_train_cli_trains_in_bf16(dtu_root, tmp_path, argv):
         shutil.rmtree(save_dir, ignore_errors=True)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--data_parallel", "2"], "ROADMAP A5"),
-    (["--view_parallel", "2"], "ROADMAP A5"),
-    (["--depth_parallel", "2"], "ROADMAP A5"),
-    (["--multi_host"], "ROADMAP A5"),
-])
-def test_train_cli_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+# The ids are the cases' names from when ROADMAP A5 refused all four.
+@pytest.mark.parametrize("argv,error,match", [
+    (["--data_parallel", "2"], ValueError, "torchrun"),
+    (["--view_parallel", "2"], ValueError, "torchrun"),
+    (["--depth_parallel", "2"], NotImplementedError, "ROADMAP A5b"),
+    (["--multi_host"], RuntimeError, "torchrun"),
+], ids=["argv0-ROADMAP A5", "argv1-ROADMAP A5", "argv2-ROADMAP A5", "argv3-ROADMAP A5"])
+def test_train_cli_refuses_what_is_not_ported(argv, error, match):
+    """`--depth_parallel` above 1 is not ported (A5b). The data and view
+    axes are (A5), but one process cannot be a grid of two, and
+    `--multi_host` needs torchrun's variables: both raise, naming torchrun,
+    before the config is read."""
+    with pytest.raises(error, match=match):
         train_cli.main(["--config", "unused.json", "--device", "cpu"] + argv)
 
 
