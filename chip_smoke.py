@@ -233,7 +233,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    files, depth and confidence within phase 7's bounds); the train CLI at
    world 1 on NCCL for one step. Each kernel's entry of the kernels line
    adds the ranks' launches and rank 0's checks.
-17. Print one JSON line of per-kernel numbers, then, last, the result line
+17. The rest of the model variants (ROADMAP A6), seeded by `random_init_`:
+   serve the DTU request (one warm-up, one timed request, counts set to 0
+   before it) with TwinMVSNet under `multi_scale` (TwinDecoderStage4V2,
+   FPNDecoderV2: K1-K3 4, K4 1, K5 none, K6 9), DINOMVSNet (the -p
+   config's arch) under `multi_scale` (VITDecoderStage4: K1-K3 4, K4 1, no
+   K5 or K6) and with `att_fusion: false` (VITDecoderStage4NoAtt: K1-K3 4,
+   K4 1, K5 3); print each request's ms and peak memory (the Twins one's
+   ms per layer), check the outputs as phase 14 does, and hold each
+   config's forward on the card against the CPU at phase 7's request and
+   bounds; hold K1-K4 and K6 to their plain versions at every launch of
+   the Twins request (phase 6's tolerances, the same bits in 5 runs); run
+   the Twins model with `want_similarity` at phase 7's request on the card
+   and on the CPU (each stage's sim_depth: the CPU's pick the card's at
+   0.8 of the pixels or more, elsewhere the CPU's cosine sum at the
+   card's pick within 1e-5 of its maximum). Train the Twins multi-scale
+   model at phase 8's shape (drop path 0.2) with `remat_backbone` off and
+   on, the same weights and generator seed: each one compared and two
+   timed steps (K7/K8 4 launches a micro-batch, K1-K6 none), the step ms
+   and peak memory of each, the compared steps run with `cudnn.deterministic`
+   and their gradients held per layer group by `grad_group_check` within
+   1e-4 (its mutants rejected). Run
+   `DINOViT(cross_att=True, nview=5)` with non-zero gates and epipoles on
+   the card against the CPU at 5x3x128x192 (1e-4 of scale), and time it at
+   the DTU request's ViT input (5x3x576x768) with and without its cross
+   blocks. Each kernel's entry of the kernels line adds this phase's
+   checks and launches.
+18. Print one JSON line of per-kernel numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
    the CLI runs' output to chiprun_out/training_run_*.log,
    chiprun_out/dino_test.log and chiprun_out/parallel_*.log.
@@ -3720,6 +3746,345 @@ def parallel_phase(torch, card, specs, serial, device="cuda"):
     return {"rows": rows, "launches": launches, "details": details}
 
 
+# The rest of the model variants (phase 17, ROADMAP A6): multi_scale for both
+# models, DINO's decoder without the attention fusion, `remat_backbone`, the
+# cross-view ViT and the similarity diagnostic. Each eval config is seeded by
+# `random_init_`; the DINO ones are configs/config_mvsformer-p.json's arch
+# with the field set.
+A6_EVALS = {
+    "twin multi_scale": ("twin", dict(multi_scale=True)),
+    "dino multi_scale": ("dino", dict(multi_scale=True)),
+    "dino att_fusion=false": ("dino", dict(att_fusion=False)),
+}
+# Launches a request: K5 runs the top-down FPN levels only, which the
+# multi-scale FPN (FPNDecoderV2) does not have; K6 runs in the Twins backbone.
+A6_LAUNCHES = {
+    "twin multi_scale": {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
+                         "encoder_head": 1, "fpn_level": 0, "gsa_attention": 9},
+    "dino multi_scale": {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
+                         "encoder_head": 1, "fpn_level": 0, "gsa_attention": 0},
+    "dino att_fusion=false": {"warp_group_corr": 4, "visibility_net": 4, "depth_decode": 4,
+                              "encoder_head": 1, "fpn_level": 3, "gsa_attention": 0},
+}
+A6_CHECKED = ("warp_group_corr", "visibility_net", "depth_decode", "encoder_head",
+              "gsa_attention")  # at every launch of the Twins multi-scale request
+A6_TIMED_STEPS = 2                # after the compared one, which warms each model up
+# The remat step's gradients against the plain step's, per layer group
+# (relative L2, 1 - cosine, |norm ratio - 1|), both steps with deterministic
+# cuDNN: without it the forward is not bit-reproducible, some stage 3-4
+# depths move from run to run and the next stage's windows with them, and
+# any two steps, plain or remat, differ by 2e-3 to 4e-2. With it an H100
+# read 1.4e-6 to 1.0e-5 for every pair (K8's atomics), and a remat that does
+# not replay the drop path's generator 1e-1 or more in the backbone
+# (`python -m mvsformer_torch.remat_probe`).
+A6_REMAT_GRAD_L2 = 1e-4
+CROSS_VIEWS = V                   # DINOViT(cross_att=True, nview=5)
+CROSS_SMALL_HW = (128, 192)       # the ViT input of the card-vs-CPU check (an 8x12 grid)
+CROSS_RTOL_OF_SCALE = 1e-4        # tokens and attention, card against CPU, fp32
+SIM_SHARE = 0.8                   # of the pixels, the CPU's sim_depth pick is the card's
+SIM_ATOL = 1e-5                   # elsewhere, the CPU's cosine sum at the card's pick
+                                  # within this of its maximum (tests/test_torch_multiscale.py)
+
+
+@contextlib.contextmanager
+def deterministic_math(torch):
+    """Within the block, cuDNN's deterministic algorithms and PyTorch's
+    deterministic implementations (an op without one warns)."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def a6_config(kind, over):
+    """The ModelConfig of an A6 cell: the default one (Twins) or the -p
+    config's arch (DINO), with `over` set (att_fusion on the ViT's
+    fields)."""
+    import dataclasses
+
+    from mvsformer_torch.config import ModelConfig, load_config
+
+    if kind == "twin":
+        cfg = ModelConfig()
+    else:
+        cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       DINO_CONFIG)).arch
+    vit = {k: v for k, v in over.items() if k == "att_fusion"}
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in over.items() if k not in vit})
+    cfg.vit_args = dataclasses.replace(cfg.vit_args, **vit)
+    return cfg
+
+
+def gate_cross_blocks_(torch, vit, generator):
+    """Non-zero gates (alpha1 in [0.5, 1.5], alpha2 in [-1.5, -0.5]) and a
+    token-type table ~ N(0, 1) from `generator` in each cross block: with
+    its zero-initialised gates a cross block is the identity. -> the
+    number of cross blocks."""
+    from mvsformer_torch.models.cross_attention import CrossBlock
+
+    blocks = [m for m in vit.modules() if isinstance(m, CrossBlock)]
+    with torch.no_grad():
+        for blk in blocks:
+            u = torch.rand(2, generator=generator)
+            blk.alpha1.fill_(0.5 + float(u[0]))
+            blk.alpha2.fill_(-0.5 - float(u[1]))
+            w = blk.tok_embeddings.weight
+            w.copy_(torch.randn(w.shape, generator=generator).to(w.device))
+    return len(blocks)
+
+
+def similarity_agreement(got_sim_depth, dv, sims):
+    """One stage's sim_depth [B, H, W] of one side against the other side's
+    hypotheses `dv` [B, D, H, W] and summed cosine volume `sims` [B, D, H,
+    W] (CPU tensors): (the share of pixels where the other side's argmax
+    is the hypothesis nearest `got_sim_depth`, the other side's largest
+    shortfall at that hypothesis below its maximum). Argmax ties flip
+    under either side's rounding, so both are held: the share to SIM_SHARE
+    or more, the shortfall to SIM_ATOL or less."""
+    pick = (dv - got_sim_depth[:, None]).abs().argmin(dim=1, keepdim=True)
+    share = float((pick == sims.argmax(dim=1, keepdim=True)).float().mean())
+    shortfall = float((sims.max(dim=1).values - sims.gather(1, pick)[:, 0]).max())
+    return share, shortfall
+
+
+def variants_a6_phase(torch, card, eval_specs, device="cuda"):
+    """Phase 17. `eval_specs`: phase 4's K1-K6 specs. Returns {"rows":
+    K1-K4's and K6's checked launches in the Twins multi-scale request,
+    "launches": one request's of each config and one timed step's of each
+    remat setting, "details"}."""
+    import copy
+    import math
+
+    from mvsformer_torch import fp32_math
+    from mvsformer_torch.config import Config
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models import stagenet
+    from mvsformer_torch.models.dino import build_vit
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.step import TrainStep
+
+    t_phase = time.perf_counter()
+    request = synthetic_request(torch, B, V, H, W, device=device)
+    details, total, rows = {}, {}, {}
+
+    def add(counts):
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+
+    # 17a-c. Each config at the DTU request, and on the card against the CPU
+    # at E2E_SHAPE; K1-K4 and K6 at every launch of the Twins request; the
+    # Twins request with the similarity on the card against the CPU.
+    for name, (kind, over) in A6_EVALS.items():
+        model = build_model(a6_config(kind, over), device=device)
+        random_init_(model, torch.Generator().manual_seed(0))
+        fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+        fn(*request)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        depth, conf, _ = fn(*request)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {n: dict(cuda_build.LAUNCHES).get(n, 0) for n in eval_specs}
+        if counts != A6_LAUNCHES[name]:
+            raise RuntimeError(f"{name}: launches {counts} in a request, "
+                               f"want {A6_LAUNCHES[name]}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        add(counts)
+        line = check_variant_outputs(torch, model, depth, conf)
+        print(f"{name} ({type(model.decoder_vit).__name__}, {type(model.decoder).__name__}): "
+              f"request {ms:.2f} ms, {B / ms * 1e3:.4f} depth-maps/s, peak memory "
+              f"{peak_gb:.3f} GB; launches {counts}; {line} [{card}]", flush=True)
+        det = {"request_ms": ms, "peak_memory_gb": peak_gb, "launches": counts}
+        if kind == "twin":
+            det["layers_ms"] = layer_breakdown(torch, model, fn, request)
+            print(f"{name} layers (device ms, one request): " + json.dumps(
+                {k: round(v, 3) for k, v in det["layers_ms"].items()}))
+            specs = {n: eval_specs[n] for n in A6_CHECKED}
+            recorded, _ = record_calls(torch, specs, fn, *request)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            for n, calls in recorded.items():
+                if len(calls) != A6_LAUNCHES[name][n]:
+                    raise RuntimeError(f"{name} {n}: recorded {len(calls)} calls")
+                rows[n] = [check_kernel(torch, card, n, specs[n],
+                                        f"{name} " + call_label(n, i, args), args, kwargs)
+                           for i, (args, kwargs) in enumerate(calls)]
+            del recorded
+        e2e = small_request_errors(torch, model, make_infer_fn)
+        e2e_ok = all(e <= (E2E_DEPTH_ATOL if k == "refined_depth" else E2E_CONF_ATOL)
+                     for k, e in e2e.items())
+        print(f"{name} request {E2E_SHAPE} on the card against the CPU: max_abs_err "
+              + ", ".join(f"{k} {e:.3e}" for k, e in e2e.items())
+              + f" (tolerance depth {E2E_DEPTH_ATOL:g}, confidence {E2E_CONF_ATOL:g}) "
+              + ("ok" if e2e_ok else "FAILED"), flush=True)
+        if not e2e_ok:
+            raise RuntimeError(f"{name}: the forward on the card disagrees with the CPU's")
+        det["e2e_small_errors"] = e2e
+        if kind == "twin":
+            # The similarity diagnostic, card against CPU, at E2E_SHAPE.
+            cpu_model = copy.deepcopy(model).cpu()
+            sums, original = [], stagenet.cosine_similarity_volume
+
+            def record(*args):
+                sums.append(original(*args))
+                return sums[-1]
+
+            with torch.inference_mode():
+                got = model(*synthetic_request(torch, *E2E_SHAPE, device=device),
+                            tmp=[5.0, 5.0, 5.0, 1.0], want_similarity=True)
+                stagenet.cosine_similarity_volume = record
+                try:
+                    want = cpu_model(*synthetic_request(torch, *E2E_SHAPE, device="cpu"),
+                                     tmp=[5.0, 5.0, 5.0, 1.0], want_similarity=True)
+                finally:
+                    stagenet.cosine_similarity_volume = original
+            views = E2E_SHAPE[1] - 1
+            sim = [similarity_agreement(got[f"stage{i + 1}"]["sim_depth"].cpu(),
+                                        want[f"stage{i + 1}"]["depth_values"],
+                                        sum(sums[i * views:(i + 1) * views]))
+                   for i in range(len(model.fusions))]
+            sim_ok = all(s >= SIM_SHARE and d <= SIM_ATOL for s, d in sim)
+            gap = max_err(got["refined_depth"].cpu(), want["refined_depth"])
+            print(f"{name} with want_similarity {E2E_SHAPE} on the card against the CPU: "
+                  f"sim_depth per stage (share of pixels with the CPU's pick, its largest "
+                  f"cosine shortfall at the card's) "
+                  + ", ".join(f"{s:.4f}/{d:.2e}" for s, d in sim)
+                  + f" (at least {SIM_SHARE:g}, at most {SIM_ATOL:g}); refined depth "
+                  f"{gap:.3e} ({E2E_DEPTH_ATOL:g}) [{card}] "
+                  + ("ok" if sim_ok and gap <= E2E_DEPTH_ATOL else "FAILED"), flush=True)
+            if not sim_ok or gap > E2E_DEPTH_ATOL:
+                raise RuntimeError(f"{name}: the similarity request disagrees with the CPU's")
+            det["similarity"] = sim
+            del cpu_model, got, want, sums
+        details[name] = det
+        del model, fn, depth, conf
+        torch.cuda.empty_cache()
+
+    # 17d. The Twins multi-scale step at phase 8's shape, remat off and on:
+    # the same weights and generator seed (drop path 0.2). The first step
+    # of each, with deterministic algorithms, is compared, the next
+    # A6_TIMED_STEPS timed.
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    n_micro = TRAIN_B // TRAIN_MICRO
+    per_step = {n: (4 * n_micro if n in TRAIN_PER_MICRO else 0)
+                for n in list(eval_specs) + list(TRAIN_PER_MICRO)}
+    state, grads, first_loss = None, {}, {}
+    for label, remat in (("plain", False), ("remat", True)):
+        cfg = Config()
+        cfg.arch.multi_scale, cfg.arch.remat_backbone = True, remat
+        model = build_model(cfg.arch, device=device, train=True)
+        if state is None:
+            random_init_(model, torch.Generator().manual_seed(1))
+            state = copy.deepcopy(model.state_dict())
+        else:
+            model.load_state_dict(state)
+        step = TrainStep(model, cfg, seed=0)
+        with deterministic_math(torch):
+            first_loss[label] = step(batch)["loss"]
+        grads[label] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                        if p.grad is not None}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(A6_TIMED_STEPS):
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            metrics = step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = dict(cuda_build.LAUNCHES)
+            if ({n: counts.get(n, 0) for n in per_step} != per_step
+                    or set(counts) - set(per_step)):
+                raise RuntimeError(f"multi_scale step (remat {remat}): launches {counts}, "
+                                   f"want {per_step}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        bad = bad_gradients(torch, model)
+        if bad or not all(math.isfinite(v) for k, v in metrics.items() if k.startswith("loss")):
+            raise RuntimeError(f"multi_scale step (remat {remat}): loss {metrics['loss']}, "
+                               f"bad gradients {bad[:8]}")
+        add(counts)
+        print(f"twin multi_scale step, remat_backbone {remat} ({TRAIN_B} as {n_micro} "
+              f"micro-batches of {TRAIN_MICRO}, {TRAIN_V} views, {TRAIN_H}x{TRAIN_W}, "
+              f"{NDEPTH_FULL} depths, drop path {model.vit.blocks[-1][-1].drop_path_rate:g} "
+              f"in the last block): " + ", ".join(f"{t:.2f}" for t in times)
+              + f" ms, peak memory {peak_gb:.2f} GB; launches {counts} a step; loss "
+              f"{metrics['loss']:.5f} [{card}]", flush=True)
+        details[f"step remat {remat}"] = {"step_ms": times, "peak_memory_gb": peak_gb,
+                                          "launches": counts, "metrics": metrics}
+        del model, step
+        torch.cuda.empty_cache()
+    del batch
+    groups = {}
+    for g in STEP_GROUPS:
+        names = sorted(n for n in grads["plain"] if n.startswith(g + "."))
+        a, b = (torch.cat([grads[k][n].double().reshape(-1) for n in names]).cpu().numpy()
+                for k in ("remat", "plain"))
+        ok, r = grad_group_check(a, b, bound=A6_REMAT_GRAD_L2)
+        caught = [k for k, mut in grad_mutants(a).items()
+                  if not grad_group_check(mut, b, bound=A6_REMAT_GRAD_L2)[0]]
+        groups[g] = dict(r, ok=ok, mutants_rejected=len(caught))
+        if not ok or len(caught) != len(grad_mutants(a)):
+            raise RuntimeError(f"remat step {g}: gradients {r} against the plain step "
+                               f"(bound {A6_REMAT_GRAD_L2:g}; mutants rejected {caught})")
+    print("twin multi_scale step, remat against plain with deterministic cuDNN, gradients "
+          f"per group (relative L2 / 1 - cosine / norm ratio, bound {A6_REMAT_GRAD_L2:g}, 5 "
+          f"mutants rejected in each): "
+          + ", ".join(f"{g} {r['err']:.2e}/{1 - r['cos']:.1e}/{r['norm']:.7f}"
+                      for g, r in groups.items())
+          + "; first-step losses " + ", ".join(f"{k} {v:.7f}" for k, v in first_loss.items())
+          + f" [{card}]", flush=True)
+    details["remat_grads"] = dict(groups, first_loss=first_loss)
+    del grads, state
+
+    # 17e. DINOViT with the cross-view blocks (5 views a sample, non-zero
+    # gates, epipoles): card against CPU at a reduced size, the DTU request's
+    # ViT input (5 x 576 x 768) timed on the card, with and without them.
+    vit = build_vit("vit_small", cross_att=True, nview=CROSS_VIEWS)
+    gen = torch.Generator().manual_seed(5)
+    random_init_(vit, gen)
+    n_cross = gate_cross_blocks_(torch, vit, gen)
+    epipoles = torch.randn((1, CROSS_VIEWS - 1, 2), generator=gen) * 100
+    x = torch.randn((CROSS_VIEWS, 3) + CROSS_SMALL_HW, generator=gen)
+    card_vit = copy.deepcopy(vit).to(device).eval()
+    with torch.no_grad(), fp32_math():
+        want = vit(x, epipoles)
+        got = card_vit(x.to(device), epipoles.to(device))
+    errs = [max_err(g.cpu(), w) / max(1.0, float(w.abs().max())) for g, w in zip(got, want)]
+    ok = max(errs) <= CROSS_RTOL_OF_SCALE and all(bool(torch.isfinite(g).all()) for g in got)
+    plain = build_vit("vit_small").to(device).eval()
+    plain.load_state_dict(card_vit.state_dict(), strict=False)
+    full = torch.randn((CROSS_VIEWS, 3, H // 2, W // 2), generator=gen).to(device)
+    epi_full = epipoles.to(device)
+    with torch.no_grad(), fp32_math():
+        cross_ms = time_ms(torch, lambda: card_vit(full, epi_full), reps=3)
+        plain_ms = time_ms(torch, lambda: plain(full), reps=3)
+        tok, _ = card_vit(full, epi_full)
+    if not bool(torch.isfinite(tok).all()):
+        raise RuntimeError("the cross-view ViT's tokens are not finite at the DTU size")
+    print(f"DINOViT cross_att ({n_cross} cross blocks, {CROSS_VIEWS} views, non-zero gates, "
+          f"epipoles) {CROSS_VIEWS}x3x{CROSS_SMALL_HW[0]}x{CROSS_SMALL_HW[1]} on the card "
+          f"against the CPU: tokens {errs[0]:.2e}, attention {errs[1]:.2e} of scale "
+          f"(tolerance {CROSS_RTOL_OF_SCALE:g}) {'ok' if ok else 'FAILED'}; at "
+          f"{CROSS_VIEWS}x3x{H // 2}x{W // 2} {cross_ms:.2f} ms, without the cross blocks "
+          f"{plain_ms:.2f} ms [{card}]", flush=True)
+    if not ok:
+        raise RuntimeError("the cross-view ViT on the card disagrees with the CPU's")
+    details["cross_vit"] = {"errs_of_scale": errs, "ms": cross_ms, "plain_ms": plain_ms,
+                            "blocks": n_cross}
+    del vit, card_vit, plain, full, tok
+    torch.cuda.empty_cache()
+    details["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17 (the variants of A6): {details['phase_s']:.1f} s", flush=True)
+    return {"rows": rows, "launches": total, "details": details}
+
+
 def main() -> int:
     import torch
 
@@ -3947,11 +4312,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     grid = parallel_phase(torch, card, specs, serial=(depth, conf))
 
+    # 17. The rest of the model variants (A6).
+    torch.cuda.empty_cache()
+    a6 = variants_a6_phase(torch, card, specs)
+
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino, variants, bf16, grid):
+    for phase in (run, dino, variants, bf16, grid, a6):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -3979,6 +4348,7 @@ def main() -> int:
                          launches=variants["launches"]),
         "bf16": dict(bf16["details"], rows=bf16["rows"], launches=bf16["launches"]),
         "parallel": dict(grid["details"], rows=grid["rows"], launches=grid["launches"]),
+        "variants_a6": dict(a6["details"], rows=a6["rows"], launches=a6["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,8 +1,8 @@
 """Typed experiment configuration for the PyTorch port.
 
 A copy of the part of the JAX package's configuration that the port reads:
-the model fields that change what the network computes (and those that
-`build_model` rejects until a later slice ports them), and the whole data,
+the model fields that change what the network computes (and a few that
+neither model reads, kept for the config files), and the whole data,
 optimizer and trainer sections that the training run reads. Routing knobs
 that only pick between exact rewrites of the same maths on a TPU have no
 counterpart here. Every field that both packages have keeps the JAX
@@ -34,8 +34,9 @@ class ViTConfig:
     out_ch: int = 64
     att_fusion: bool = True  # DINO: CLS-attention fusion in the ViT decoder
     nhead: int = 6  # read by neither model (the heads are the ViT preset's)
-    multi_scale_decoder: bool = False  # read by neither model
-    cross_att: bool = False  # DINO cross-view attention (not ported: ROADMAP A6)
+    multi_scale_decoder: bool = False  # read by neither model (as in the JAX package)
+    cross_att: bool = False  # read by neither model: the JAX DINOMVSNet builds its ViT
+    # without it, so the cross-view blocks exist only in `DINOViT(cross_att=True)`
     drop_path_rate: float | None = None  # stochastic depth; None = the preset's
 
 
@@ -59,6 +60,7 @@ class ModelConfig:
     norm_type: str = "BN"  # BN | GN | IN | none
     clamp_eth3d: bool = False  # ETH3D clamped inverse-depth schedulers
     eval_view_chunk: int = 0  # >0: eval backbone runs views in chunks
+    remat_backbone: bool = False  # training: recompute the backbone in the backward
     vit_args: ViTConfig = field(default_factory=ViTConfig)
 
 

@@ -15,6 +15,13 @@ norm, the head and the levels run as the modules themselves: convs, the
 norm, the align-corners 2x resize and the 1x1 inner convs. The choice is
 made once, when the module is built, from the norm.
 
+Under `multi_scale` the decoder is `FPNDecoderV2`, which fuses the three
+maps of the multi-scale ViT decoders by concatenation and upsamples with
+transposed convs: its levels are the modules themselves (cuDNN), in eval
+as in training, as the JAX package has no kernel for them. The encoder
+head stays K4 in eval under BN (the JAX package turns its fused head off
+under `multi_scale`, a TPU routing choice over the same maths).
+
 In the bf16 mode K4 and K5 are fp32 islands: they take the bf16 maps and
 the weights in bf16, as a bf16 convolution reads them, compute in fp32
 and return bf16 (`ops/cuda_build.fp32_island`); the folded BN stays fp32.
@@ -22,9 +29,11 @@ and return bf16 (`ops/cuda_build.fp32_island`); the folded BN stays fp32.
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 
-from mvsformer_torch.models.blocks import Conv2d, ConvNormAct, ConvNormSeq, Swish, like
+from mvsformer_torch.models.blocks import (Conv2d, ConvNormAct, ConvNormSeq, Deconv2dNormAct,
+                                           Swish, like)
 from mvsformer_torch.ops.encoder_head import encoder_head
 from mvsformer_torch.ops.fpn_level import fpn_level
 from mvsformer_torch.ops.resize import resize_bilinear
@@ -95,3 +104,30 @@ class FPNDecoder(nn.Module):
         out2, intra = self._level(2, intra, conv11, True)
         out3 = self._level(3, intra, conv01, False)
         return out0, out1, out2, out3
+
+
+class FPNDecoderV2(nn.Module):
+    """The multi-scale decoder: each level a 3x3 conv + norm + swish
+    (`outK`, reference keys `0`/`1`) on the concatenation of the encoder's
+    map (plus the upsampled level above) and the ViT decoder's map of that
+    resolution, `upsampleK` a transposed conv + norm + ReLU; the last level
+    takes `upsample3` + conv01 alone. `vit_chs`: the channels of the three
+    ViT maps (out_ch, out_ch / 2, out_ch / 4 of either multi-scale ViT
+    decoder). -> stage1..stage4 maps at 1/8..1/1 resolution."""
+
+    def __init__(self, feat_chs=(8, 16, 32, 64), vit_chs=(64, 32, 16), norm="BN"):
+        super().__init__()
+        ch = feat_chs
+        self.out1 = ConvNormSeq(ch[3] + vit_chs[0], ch[3], 3, Swish(), norm=norm)
+        self.upsample1 = Deconv2dNormAct(ch[3], ch[2], nn.ReLU(), norm=norm)
+        self.out2 = ConvNormSeq(ch[2] + vit_chs[1], ch[2], 3, Swish(), norm=norm)
+        self.upsample2 = Deconv2dNormAct(ch[2], ch[1], nn.ReLU(), norm=norm)
+        self.out3 = ConvNormSeq(ch[1] + vit_chs[2], ch[1], 3, Swish(), norm=norm)
+        self.upsample3 = Deconv2dNormAct(ch[1], ch[0], nn.ReLU(), norm=norm)
+        self.out4 = ConvNormSeq(ch[0], ch[0], 3, Swish(), norm=norm)
+
+    def forward(self, conv01, conv11, conv21, conv31, vit1, vit2, vit3):
+        out1 = self.out1(torch.cat([conv31, vit1], dim=1))
+        out2 = self.out2(torch.cat([self.upsample1(out1) + conv21, vit2], dim=1))
+        out3 = self.out3(torch.cat([self.upsample2(out2) + conv11, vit3], dim=1))
+        return out1, out2, out3, self.out4(self.upsample3(out3) + conv01)

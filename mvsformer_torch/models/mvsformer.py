@@ -2,7 +2,9 @@
 factory of both.
 
 Port of `mvsformer_tpu/models/mvsformer.py`: FPN encoder + Twins backbone
-fused by TwinDecoderStage4, then a 4-stage coarse-to-fine cascade of
+fused by TwinDecoderStage4 (under `multi_scale`, TwinDecoderStage4V2's
+three maps concatenated into FPNDecoderV2's levels), then a 4-stage
+coarse-to-fine cascade of
 StageNets with inverse-depth (or metric) hypothesis scheduling, the ETH3D
 clamped forms under `clamp_eth3d`, and a stage-averaged confidence (ce and
 mixup_ce; the last stage's for re and was). `CascadeMVSNet` holds that
@@ -28,7 +30,13 @@ The forward follows `self.training`, as the JAX model follows its
 `training` argument: batch-statistics BN, stochastic depth in the backbone
 (drawn from the caller's generator), and each stage's training warp and
 decode. With `cfg.fix` the backbone runs without gradient and without drop
-path, as the JAX model stops its gradient.
+path, as the JAX model stops its gradient. With `remat_backbone` (in
+training, without `fix`) the backbone keeps no activations for the
+backward and runs again there (`remat`), as the JAX model's `nn.remat`.
+
+`forward(..., want_similarity=True)` (eval) adds each stage's `sim_depth`,
+the JAX StageNet's cosine-similarity diagnostic; the JAX model computes it
+in every eval forward off the TPU, the port only when asked.
 """
 
 from __future__ import annotations
@@ -37,12 +45,13 @@ import math
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from mvsformer_torch import fp32_math, resolve_device
 from mvsformer_torch.config import ModelConfig
 from mvsformer_torch.models.blocks import FoldedBatchNorm
-from mvsformer_torch.models.decoders import TwinDecoderStage4
-from mvsformer_torch.models.fpn import FPNDecoder, FPNEncoder
+from mvsformer_torch.models.decoders import TwinDecoderStage4, TwinDecoderStage4V2
+from mvsformer_torch.models.fpn import FPNDecoder, FPNDecoderV2, FPNEncoder
 from mvsformer_torch.models.stagenet import StageNet
 from mvsformer_torch.models.twins import PRESETS, build_twins
 from mvsformer_torch.ops import hypotheses
@@ -50,6 +59,33 @@ from mvsformer_torch.ops.resize import resize_bicubic, resize_nearest
 
 STAGE_SCALES = (8, 4, 2, 1)  # stage1..stage4 feature-map downscale factors
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def remat(vit, x, generator=None):
+    """`vit(x, generator=generator)` (or `vit(x)` without a generator)
+    through `torch.utils.checkpoint`: no activation is kept for the
+    backward, which runs the backbone again. `checkpoint` restores the
+    default generators for that second run but not an explicit one, from
+    which drop path draws its masks; so the second run starts `generator`
+    from its state at the first, which draws the same masks, and gives it
+    back its state afterwards, so the caller's draws go on as without
+    remat. The second run may stop early, once it has recomputed what the
+    backward needs: the state comes back in a `finally`."""
+    if generator is None:
+        return checkpoint(vit, x, use_reentrant=False)
+    start, runs = generator.get_state(), []
+
+    def run(x):
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return vit(x, generator=generator)
+        finally:
+            if runs:  # the backward's run
+                generator.set_state(now)
+            runs.append(1)
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class CascadeMVSNet(nn.Module):
@@ -70,7 +106,11 @@ class CascadeMVSNet(nn.Module):
         self._bf16 = dtype == torch.bfloat16
         feat_chs = tuple(cfg.feat_chs)
         self.encoder = FPNEncoder(feat_chs, cfg.norm_type)
-        self.decoder = FPNDecoder(feat_chs, cfg.norm_type)
+        if cfg.multi_scale:  # the multi-scale ViT decoders' maps: out_ch, out_ch/2, out_ch/4
+            out = cfg.vit_args.out_ch
+            self.decoder = FPNDecoderV2(feat_chs, (out, out // 2, out // 4), cfg.norm_type)
+        else:
+            self.decoder = FPNDecoder(feat_chs, cfg.norm_type)
         self.fusions = nn.ModuleList(
             StageNet(nd, cfg.base_ch, cfg.model_th, cfg.fusion_type, cfg.depth_type,
                      cfg.norm_type, cfg.attn_temp) for nd in cfg.ndepths)
@@ -102,18 +142,23 @@ class CascadeMVSNet(nn.Module):
         vit_w = int(imgs.shape[3] * self.cfg.vit_args.rescale)
         return resize_bicubic(imgs.float(), (vit_h, vit_w)).to(self.compute_dtype)
 
-    def forward(self, imgs, proj_matrices, depth_values, tmp=2.0, generator=None):
+    def forward(self, imgs, proj_matrices, depth_values, tmp=2.0, generator=None,
+                want_similarity=False):
         """imgs [B, V, H, W, 3]; proj_matrices {stageK: [B, V, 2, 4, 4]};
         depth_values [B, Dfull]; tmp: float or per-stage list (eval);
         generator: the torch.Generator that drop path draws from in training
-        (on the model's device; None takes the default one).
+        (on the model's device; None takes the default one);
+        want_similarity (eval): each stage's output adds `sim_depth`.
 
         The fp32 work (all of it in fp32 mode; the islands in bf16 mode)
         runs in full fp32: TF32 is off for the forward and the caller's
         setting is restored. A training step also runs its backward under
         `fp32_math`."""
+        if want_similarity and self.training:
+            raise ValueError("want_similarity is an eval diagnostic")
         with fp32_math():
-            return self._forward(imgs, proj_matrices, depth_values, tmp, generator)
+            return self._forward(imgs, proj_matrices, depth_values, tmp, generator,
+                                 want_similarity)
 
     def view_features(self, imgs, generator=None):
         """imgs [B, V, H, W, 3] -> per-stage maps [B, V, C, h, w]; in eval
@@ -131,7 +176,8 @@ class CascadeMVSNet(nn.Module):
                 torch.cat([a, b], dim=1) for a, b in zip(per_stage, fs)]
         return per_stage
 
-    def _forward(self, imgs, proj_matrices, depth_values, tmp, generator=None):
+    def _forward(self, imgs, proj_matrices, depth_values, tmp, generator=None,
+                 want_similarity=False):
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
         features = self.view_features(imgs, generator)
@@ -165,7 +211,7 @@ class CascadeMVSNet(nn.Module):
                     cfg.depth_interals_ratio[stage_idx] * depth_interval, sh, sw)
             stage_tmp = tmp[stage_idx] if isinstance(tmp, (list, tuple)) else tmp
             prev = self.fusions[stage_idx](feat[:, 0], feat[:, 1:], projs[:, 0],
-                                           projs[:, 1:], samples, stage_tmp)
+                                           projs[:, 1:], samples, stage_tmp, want_similarity)
             outputs[f"stage{stage_idx + 1}"] = prev
             if averaged:
                 conf = prev["photometric_confidence"]
@@ -182,8 +228,9 @@ class TwinMVSNet(CascadeMVSNet):
     def __init__(self, cfg: ModelConfig, dtype=torch.float32, layout=None):
         super().__init__(cfg, dtype)
         self.vit = build_twins(cfg.vit_args.vit_arch, cfg.vit_args.drop_path_rate)
-        self.decoder_vit = TwinDecoderStage4(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
-                                             cfg.vit_args.out_ch, cfg.norm_type)
+        decoder = TwinDecoderStage4V2 if cfg.multi_scale else TwinDecoderStage4
+        self.decoder_vit = decoder(PRESETS[cfg.vit_args.vit_arch]["embed_dims"],
+                                   cfg.vit_args.out_ch, cfg.norm_type)
         self.use_layout(layout)
 
     def extract_features(self, imgs, generator=None):
@@ -194,8 +241,12 @@ class TwinMVSNet(CascadeMVSNet):
         if self.training and self.cfg.fix:
             with torch.no_grad():
                 vit_feats = self.vit(vit_imgs, deterministic=True)
+        elif self.training and self.cfg.remat_backbone:
+            vit_feats = remat(self.vit, vit_imgs, generator)
         else:
             vit_feats = self.vit(vit_imgs, generator=generator)
+        if self.cfg.multi_scale:
+            return self.decoder(conv01, conv11, conv21, conv31, *self.decoder_vit(*vit_feats))
         conv31 = conv31 + self.decoder_vit(*vit_feats)
         return self.decoder(conv01, conv11, conv21, conv31)
 
@@ -211,19 +262,17 @@ def build_model(cfg: ModelConfig, device=None, train: bool = False,
     fp32 parameters computing in `dtype`: torch.float32 or torch.bfloat16
     (the JAX package's bf16 mode, with its fp32 islands), as one rank of
     `layout` (`parallel/mesh.Layout`, the JAX `build_model`'s `axis_name`
-    and `view_axis`; None runs alone). Raises NotImplementedError for parts
-    of the configuration that later slices port, ValueError for values no
-    model has."""
+    and `view_axis`; None runs alone). Raises ValueError for values no
+    model has, and for DINO's `att_fusion: false` with `multi_scale`,
+    which the JAX DINOMVSNet cannot run either (its no-attention decoder
+    returns one map where the multi-scale FPN takes three; ROADMAP E10).
+    DINO's `cross_att` builds the JAX model, whose ViT has no cross block
+    (ROADMAP E9)."""
     dev = resolve_device(device)
-    va, dino = cfg.vit_args, cfg.model_type == "dino"
-    unsupported = {
-        "multi_scale (ROADMAP A6)": bool(cfg.multi_scale),
-        "att_fusion=false (ROADMAP A6)": dino and not va.att_fusion,
-        "cross_att (ROADMAP A6)": dino and bool(va.cross_att),
-    }
-    missing = [k for k, bad in unsupported.items() if bad]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    dino = cfg.model_type == "dino"
+    if dino and cfg.multi_scale and not cfg.vit_args.att_fusion:
+        raise ValueError("DINOMVSNet has no model for att_fusion=false with multi_scale: the "
+                         "no-attention decoder gives one map, the multi-scale FPN takes three")
     if cfg.model_type not in ("twin", "dino"):
         raise ValueError(f"unknown model_type {cfg.model_type!r}")
     if cfg.depth_type not in DEPTH_TYPES:

@@ -26,7 +26,14 @@ cnn fusion the entropy in torch ops on the correlation and the visibility
 CNN as its modules with batch-statistics BN, once per view as the JAX view
 loop calls it (so its running statistics take one update per view); then
 `regression.decode_depth`. K1-K3 take folded BN or have no backward and
-run in eval only. The similarity diagnostic comes with a later slice.
+run in eval only.
+
+The similarity diagnostic (eval, `want_similarity`): each source view is
+warped again through the plain `geometry.homo_warp` (K1 computes the
+correlation, not the warped volume), the views' cosine-similarity volumes
+(`correlation.cosine_similarity_volume`) are summed, and `sim_depth` is
+the hypothesis at their argmax over depth, as the JAX StageNet computes
+it off the TPU. Under a view split the sum joins the view all-reduce.
 
 Under a view split (the model's layout, `parallel/mesh.py`) a stage gets
 the reference view and this rank's sources; `volume_sum` and the sum of
@@ -45,8 +52,8 @@ import torch.nn as nn
 from mvsformer_torch.models.blocks import Conv2d, ConvBnReLU, like
 from mvsformer_torch.models.costreg import CostRegNet, CostRegNet2D, CostRegNet3D
 from mvsformer_torch.ops import geometry, regression
-from mvsformer_torch.ops.correlation import (entropy_over_depth, epipole_v2_weight,
-                                             epipole_weight)
+from mvsformer_torch.ops.correlation import (cosine_similarity_volume, entropy_over_depth,
+                                             epipole_v2_weight, epipole_weight)
 from mvsformer_torch.ops.stage_tail import depth_decode
 from mvsformer_torch.ops.vis_net import visibility_net
 from mvsformer_torch.ops.warp_corr import warp_group_corr
@@ -128,10 +135,23 @@ class StageNet(nn.Module):
             w = [epipole_v2_weight(c, self.attn_temp, m, G) for c, m in zip(views, invalid)]
         return torch.stack(w, 1)[:, :, None]
 
-    def forward(self, ref_feat, src_feats, ref_proj, src_projs, depth_values, tmp: float):
+    def similarity(self, ref_cl, src_cl, src_full, ref_full, dv):
+        """The sum over this rank's source views of the cosine-similarity
+        volumes [B, D, H, W] of the reference features and each view warped
+        by the plain `geometry.homo_warp` (fp32, channels-last inputs)."""
+        sim = None
+        for v in range(src_cl.shape[1]):
+            warped, _ = geometry.homo_warp(src_cl[:, v], src_full[:, v], ref_full, dv)
+            s = cosine_similarity_volume(ref_cl, warped, self.base_ch)
+            sim = s if sim is None else sim + s
+        return sim
+
+    def forward(self, ref_feat, src_feats, ref_proj, src_projs, depth_values, tmp: float,
+                want_similarity: bool = False):
         """ref_feat [B,C,H,W]; src_feats [B,Vs,C,H,W] in the compute dtype;
         ref_proj [B,2,4,4]; src_projs [B,Vs,2,4,4]; depth_values [B,D,H,W]
-        -> stage outputs.
+        -> stage outputs; with `want_similarity` (eval) also `sim_depth`
+        [B, H, W].
 
         The fp32 islands of the bf16 mode, as the JAX StageNet keeps them:
         the projections, the hypotheses and the features the warp reads
@@ -153,6 +173,8 @@ class StageNet(nn.Module):
         else:
             corr, ent = warp_group_corr(ref_cl, src_cl, src_full, ref_full, dv, groups=G)
         w = self.view_weights(corr, ent, C, src_full, ref_full, dv, dt)
+        sim = (self.similarity(ref_cl, src_cl, src_full, ref_full, dv) if want_similarity
+               else None)
 
         # Weighted view mean, accumulated view by view in the reference's order;
         # under a view split each rank sums its own sources, and one
@@ -165,6 +187,8 @@ class StageNet(nn.Module):
         if self.view_group is not None:
             volume_sum = all_sum(volume_sum, self.view_group)
             w_sum = all_sum(w_sum, self.view_group)
+            if sim is not None:
+                sim = all_sum(sim, self.view_group)
         volume_mean = volume_sum / (w_sum + 1e-6)
 
         logits = self.cost_reg(volume_mean.to(dt))[:, 0].float().contiguous()
@@ -173,5 +197,8 @@ class StageNet(nn.Module):
                                                   training=self.training)
         else:
             depth, conf = depth_decode(logits, dv, tmp)
-        return {"depth": depth, "photometric_confidence": conf,
-                "prob_volume_pre": logits, "depth_values": dv}
+        out = {"depth": depth, "photometric_confidence": conf,
+               "prob_volume_pre": logits, "depth_values": dv}
+        if sim is not None:
+            out["sim_depth"] = torch.gather(dv, 1, sim.argmax(dim=1, keepdim=True))[:, 0]
+        return out

@@ -1,8 +1,8 @@
 """Group-wise correlation and the depth entropy that feeds the visibility CNN.
 
 Port of `mvsformer_tpu/ops/correlation.py`: the correlation, the entropy
-that feeds the cnn fusion's visibility CNN, and the epipole fusions'
-per-depth view weights. Layouts follow the JAX functions: volumes are
+that feeds the cnn fusion's visibility CNN, the epipole fusions'
+per-depth view weights, and the eval-time cosine-similarity diagnostic. Layouts follow the JAX functions: volumes are
 [B, D, H, W, G] (any strided view). All correlation maths is fp32 (fp64
 stays fp64, for gradient checks).
 """
@@ -22,6 +22,20 @@ def groupwise_correlation(ref_fea, warped, groups: int):
     ref = ref_fea.to(dtype).reshape(B, 1, H, W, groups, C // groups)
     src = warped.to(dtype).reshape(B, D, H, W, groups, C // groups)
     return (ref * src).mean(dim=-1)
+
+
+def cosine_similarity_volume(ref_fea, warped, groups: int):
+    """The cosine-similarity diagnostic [B, D, H, W] of ref [B,H,W,C] and
+    warped [B,D,H,W,C]: both grouped as (G, C/G), each normalised over the
+    G axis (the reference's torch dim 1 of [B, G, C/G, ...]), then the
+    product's mean over C/G and sum over G, in fp32."""
+    B, D, H, W, C = warped.shape
+    dtype = torch.promote_types(warped.dtype, torch.float32)
+    ref = ref_fea.to(dtype).reshape(B, 1, H, W, groups, C // groups)
+    src = warped.to(dtype).reshape(B, D, H, W, groups, C // groups)
+    ref = ref / (torch.linalg.vector_norm(ref, dim=-2, keepdim=True) + 1e-12)
+    src = src / (torch.linalg.vector_norm(src, dim=-2, keepdim=True) + 1e-12)
+    return (ref * src).mean(dim=-1).sum(dim=-1)
 
 
 def entropy_over_depth(corr):

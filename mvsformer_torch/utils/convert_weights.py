@@ -22,7 +22,12 @@ arrays and lays each tensor out for torch:
 
 Each `*_state` function maps one module's subtree; `convert_flax_twin` maps
 the whole TwinMVSNet, `convert_flax_dino` the whole DINOMVSNet, and
-`convert_flax` either, by the tree. `load_reference_checkpoint` loads a
+`convert_flax` either, by the tree. The variants are read from the tree
+too: the multi-scale FPN (`decoder/upsample1`) and Twins decoder
+(`decoder_vit/decoder1`), the DINO decoders (`decoder_vit/decoder1a`:
+`VITDecoderStage4`, under the flax modules' names, since the reference
+names of these two are not in the repository; `down_sample`:
+`VITDecoderStage4NoAtt`) and a ViT's cross blocks (`cross_block{k}`). `load_reference_checkpoint` loads a
 reference `.pth` of either model as it is, since the names already agree,
 and `merge_pretrained_backbone` merges a pretrained Twins or DINO ViT
 `.pth` into the backbone.
@@ -99,8 +104,28 @@ def encoder_state(params, stats, prefix="") -> dict:
     return sd
 
 
+def _norm(sd, key, params, stats, name):
+    """A flax `Norm` module `name` (BatchNorm_0, GroupNorm_0, or no
+    parameters under "none") -> torch <key>.*"""
+    norm = params.get(name, {})
+    if "BatchNorm_0" in norm:
+        _bn(sd, key, norm["BatchNorm_0"], _sub(stats, name, "BatchNorm_0"))
+    elif "GroupNorm_0" in norm:
+        _ln(sd, key, norm["GroupNorm_0"])
+
+
 def fpn_decoder_state(params, stats, prefix="") -> dict:
+    """FPNDecoder, or FPNDecoderV2 (multi-scale) where the tree has
+    `upsample1`."""
     sd: dict = {}
+    if "upsample1" in params:
+        for k in (1, 2, 3, 4):
+            _conv_block(sd, f"{prefix}out{k}", params[f"out{k}"], _sub(stats, f"out{k}"),
+                        conv_key="0", bn_key="1")
+        for k in (1, 2, 3):
+            _conv_block(sd, f"{prefix}upsample{k}", params[f"upsample{k}"],
+                        _sub(stats, f"upsample{k}"), conv_key="0", bn_key="1", deconv=True)
+        return sd
     for k in range(4):
         _conv_block(sd, f"{prefix}out{k}", params[f"out{k}"], _sub(stats, f"out{k}"),
                     conv_key="0", bn_key="1")
@@ -110,9 +135,13 @@ def fpn_decoder_state(params, stats, prefix="") -> dict:
 
 
 def twin_decoder_state(params, stats, prefix="") -> dict:
+    """TwinDecoderStage4, or TwinDecoderStage4V2 (its `decoder1` and
+    `decoder2` too)."""
     sd: dict = {}
-    _conv_block(sd, f"{prefix}upsampler0", params["upsampler0"], _sub(stats, "upsampler0"),
-                conv_key="0", bn_key="1", deconv=True)
+    for name in ("upsampler0", "decoder1", "decoder2"):
+        if name in params:
+            _conv_block(sd, f"{prefix}{name}", params[name], _sub(stats, name),
+                        conv_key="0", bn_key="1", deconv=True)
     for k in (1, 2, 3):
         _plain(sd, f"{prefix}inner{k}", params[f"inner{k}"])
         _conv_block(sd, f"{prefix}smooth{k}", params[f"smooth{k}"], _sub(stats, f"smooth{k}"),
@@ -146,9 +175,18 @@ def twins_state(params, depths=(2, 2, 10, 4), prefix="") -> dict:
     return sd
 
 
+def cross_block_state(params, prefix="") -> dict:
+    """flax CrossBlock params -> torch keys (the flax modules' names)."""
+    sd: dict = {f"{prefix}tok_embeddings.weight": params["tok_embeddings"]["embedding"],
+                f"{prefix}alpha1": params["alpha1"], f"{prefix}alpha2": params["alpha2"]}
+    for name in ("attn.qkv", "attn.proj", "fc1", "fc2"):
+        _plain(sd, f"{prefix}{name}", _sub(params, *name.split(".")), np.transpose)
+    return sd
+
+
 def dino_vit_state(params, depth=12, prefix="") -> dict:
     """flax DINOViT params -> torch DINO ViT keys (the inverse of
-    convert_dino_vit)."""
+    convert_dino_vit), with its cross blocks where it has them."""
     sd: dict = {f"{prefix}cls_token": params["cls_token"],
                 f"{prefix}pos_embed": params["pos_embed"]}
     _plain(sd, f"{prefix}patch_embed.proj", params["patch_embed"])
@@ -161,18 +199,36 @@ def dino_vit_state(params, depth=12, prefix="") -> dict:
         _plain(sd, f"{key}.attn.proj", blk["attn"]["proj"], np.transpose)
         _plain(sd, f"{key}.mlp.fc1", blk["fc1"], np.transpose)
         _plain(sd, f"{key}.mlp.fc2", blk["fc2"], np.transpose)
+    for name in params:
+        if name.startswith("cross_block"):
+            sd.update(cross_block_state(params[name], f"{prefix}{name}."))
     return sd
 
 
 def vit_decoder_state(params, stats, prefix="") -> dict:
     """flax VITDecoderStage4Single -> torch keys (the DINO decoder part of
     convert_full_dino): the attention fusion, then the two transposed
-    convs at `decoder.0/1` and `decoder.3/4`."""
+    convs at `decoder.0/1` and `decoder.3/4`. VITDecoderStage4 (the tree
+    has `decoder1a`) and VITDecoderStage4NoAtt (`down_sample`) keep the
+    flax names."""
     sd: dict = {}
+    if "down_sample" in params:
+        for name, deconv in (("down_sample", False), ("deconv1", True), ("deconv2", True)):
+            _conv_block(sd, f"{prefix}{name}", params[name], _sub(stats, name), conv_key="0",
+                        bn_key="1", deconv=deconv)
+        return sd
     for name in ("conv_l", "conv_r"):
         _conv_block(sd, f"{prefix}attn.{name}", params["attn"][name], _sub(stats, "attn", name),
                     conv_key="0", bn_key="1")
     _plain(sd, f"{prefix}attn.proj", params["attn"]["proj"])
+    if "decoder1a" in params:
+        _conv_block(sd, f"{prefix}decoder1a", params["decoder1a"], _sub(stats, "decoder1a"),
+                    conv_key="0", bn_key="1", deconv=True)
+        for name in ("decoder1b", "decoder2", "decoder3"):
+            _plain(sd, f"{prefix}{name}", params[name], _deconv_w)
+        for name in ("bn2", "bn3"):
+            _norm(sd, f"{prefix}{name}", params, stats, name)
+        return sd
     for name, keys in (("deconv1", ("0", "1")), ("deconv2", ("3", "4"))):
         _conv_block(sd, f"{prefix}decoder", params[name], _sub(stats, name), conv_key=keys[0],
                     bn_key=keys[1], deconv=True)

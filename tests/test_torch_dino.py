@@ -266,10 +266,21 @@ def test_random_init_draws_the_vit_tokens_from_the_generator():
     ("att_fusion", dict(att_fusion=False)), ("multi_scale", None), ("cross_att",
                                                                     dict(cross_att=True))])
 def test_build_model_refuses_the_unported_dino_variants(field, kw):
+    """A6 ported these DINO variants: each builds, with the JAX model's
+    decoder (and no cross block under cross_att, as the JAX DINOMVSNet);
+    the one refusal left is att_fusion=false with multi_scale, which no
+    model has (ROADMAP E10)."""
     cfg = port_cfg(multi_scale=kw is None)
     if kw:
         cfg.vit_args = ViTConfig(**dict(DINO_VIT, **kw))
-    with pytest.raises(NotImplementedError, match=rf"{field}.*ROADMAP A6"):
+    model = build_model(cfg, device="cpu")
+    want = {"att_fusion": "VITDecoderStage4NoAtt", "multi_scale": "VITDecoderStage4",
+            "cross_att": "VITDecoderStage4Single"}[field]
+    assert type(model.decoder_vit).__name__ == want
+    assert not any(n.startswith("vit.cross_block") for n in model.state_dict())
+    cfg.multi_scale = True
+    cfg.vit_args = ViTConfig(**dict(DINO_VIT, att_fusion=False))
+    with pytest.raises(ValueError, match="att_fusion=false with multi_scale"):
         build_model(cfg, device="cpu")
 
 

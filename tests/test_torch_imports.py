@@ -183,8 +183,14 @@ def test_forward_runs_with_tf32_off_and_restores_the_flags(monkeypatch, raises):
 
 
 def test_build_model_rejects_what_later_slices_port():
-    with pytest.raises(NotImplementedError, match=r"multi_scale \(ROADMAP A6\)"):
-        build_model(ModelConfig(multi_scale=True), device="cpu")
+    """Every model configuration builds since A6 (multi_scale among them);
+    what a later slice ports, the depth axis of the process grid, still
+    raises, naming ROADMAP A5b."""
+    from mvsformer_torch.parallel import mesh
+
+    assert build_model(ModelConfig(multi_scale=True), device="cpu").cfg.multi_scale
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A5b"):
+        mesh.make_layout(depth=2)
 
 
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():

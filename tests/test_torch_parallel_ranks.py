@@ -175,6 +175,18 @@ def job_eval(job, layout):
             "launches": dict(cuda_build.LAUNCHES)}
 
 
+def job_similarity(job, layout):
+    """The eval forward of this rank's views with `want_similarity`: the
+    refined outputs and each stage's sim_depth."""
+    _, model = _build(job, layout, train=False)
+    imgs, projs, dv = torch.load(job["request"], weights_only=False)
+    imgs, projs = layout.local_request(imgs, projs)
+    with torch.inference_mode():
+        out = model(imgs, projs, dv, tmp=job["tmps"], want_similarity=True)
+    return {"depth": out["refined_depth"], "conf": out["photometric_confidence"],
+            "sim_depth": [out[f"stage{i + 1}"]["sim_depth"] for i in range(len(KEYS))]}
+
+
 def job_save_depth(job, layout):
     from mvsformer_torch.infer import save_depth
 
@@ -207,7 +219,7 @@ def job_sums(job, layout):
 
 
 JOBS = {"step": job_step, "eval": job_eval, "save_depth": job_save_depth, "cli": job_cli,
-        "sums": job_sums}
+        "sums": job_sums, "similarity": job_similarity}
 
 
 def rank_main(path):

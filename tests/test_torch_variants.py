@@ -20,8 +20,9 @@ CFG: B=1, V=3, 64x64, ndepths 8/4/4/2, full-width alt_gvt_small), fp32:
   for `mixup_ce` against `jax.value_and_grad` and optax, as
   tests/test_torch_train_step.py holds the ce step (with
   tests/test_torch_dino.py's bounds for random weights);
-- `build_model` still refuses `multi_scale`, `att_fusion=false` and
-  `cross_att`, naming ROADMAP A6.
+- `build_model` builds `multi_scale`, `att_fusion=false` and `cross_att`
+  (ROADMAP A6 landed), and still refuses DINO's `att_fusion=false` with
+  `multi_scale`, which no model has (ROADMAP E10).
 """
 
 import copy
@@ -344,8 +345,16 @@ def test_kernel_routing_follows_the_norm(monkeypatch, norm):
         twin=False, vit_arch="vit_small", vit_ch=384, cross_att=True))),
 ])
 def test_build_model_still_refuses(field, cfg):
-    with pytest.raises(NotImplementedError, match=rf"{field} \(ROADMAP A6\)"):
-        build_model(cfg, device="cpu")
+    """Each of A6's configurations builds; what is still refused is its
+    combination of DINO's att_fusion=false with multi_scale (ROADMAP
+    E10), by a ValueError."""
+    model = build_model(cfg, device="cpu")
+    assert (type(model.decoder).__name__ == "FPNDecoderV2") == (field == "multi_scale")
+    refused = copy.deepcopy(cfg)
+    refused.model_type, refused.multi_scale = "dino", True
+    refused.vit_args = ViTConfig(twin=False, vit_arch="vit_small", vit_ch=384, att_fusion=False)
+    with pytest.raises(ValueError, match="att_fusion=false with multi_scale"):
+        build_model(refused, device="cpu")
 
 
 @pytest.mark.parametrize("field,value", [("depth_type", "bimodal"), ("norm_type", "LN"),
