@@ -92,8 +92,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    runs of `make_infer_fn` to agree bit for bit. Run save_depth at a small
    shape on the card and on the CPU with the same weights and compare
    every artifact (depth_metric.txt within 1e-4). Fuse the plane's exact depth maps by pcd, dpcd
-   and gipuma on the card and on the CPU (kept share of the interior, mask
-   agreement, points, distance from the plane; fusion ms per view), then
+   and gipuma on the card (kept share of the interior, distance from the
+   plane; fusion ms per view) and views 0 and 3 on the CPU as well (mask
+   agreement, points), then
    the random weights' depth maps into a PLY as a smoke run.
 12. The training run as a user runs it: `python -m mvsformer_torch.train
    --config configs/config_mvsformer.json` (as it ships: the default
@@ -107,10 +108,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    at the 2 largest crop sizes (1024x1280 first, 8 micro-batches of 1), a
    `--profile_dir` window of step 2, validation over the 21 samples (3
    batches, B=8 and B=5, 512x640). Then `--resume` with 2 epochs (2 more
-   steps and a validation), then `python -m mvsformer_torch.test --which_ckpt
-   model_best` (bf16, its default) on phase 11's eval scan. Each step must show a
-   finite loss, the barrels' crop size, K7/K8 4 launches a micro-batch and
-   K1-K6 none; each validation K1-K6 at their per-request counts a batch;
+   steps; the resumed epoch does not validate, epoch 1's validation runs
+   the same code), and beside it `python -m mvsformer_torch.test
+   --which_ckpt model_best` (bf16, its default) on phase 11's eval scan.
+   Each step must show a finite loss, the barrels' crop size, K7/K8 4
+   launches a micro-batch and K1-K6 none; the validation K1-K6 at their
+   per-request counts a batch;
    model_best, model_last, model_step and their sidecars must be written;
    the resume must start at epoch 2, global step 2, at LR schedule(2);
    model_last restored in this process must equal the file bit for bit;
@@ -120,8 +123,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    checkpoint ms and bytes, peak memory, the profile window's idle share.
    Then K1-K6 are held against their plain versions on one validation batch
    (B=8, 512x640) and K7/K8 on one training micro-batch at 1024x1280; and
-   at each of the 25 crop sizes one training micro-batch and one eval
-   forward of 1 sample run, all outputs finite. Each kernel's entry of the
+   at every other of the 25 crop sizes from the largest (13) one training
+   micro-batch and one eval forward of 1 sample run, all outputs finite. Each kernel's entry of the
    kernels line adds these checks and the CLI runs' launches.
 13. DINOMVSNet (MVSFormer-P) as `configs/config_mvsformer-p.json` ships
    it: vit_small at full width (384 wide, 12 blocks, 6 heads, patch 16) on
@@ -199,11 +202,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel's entry of the
    kernels line adds this phase's checks and a request's, a DINO request's
    and a step's launches.
-16. The process grid (data and view parallelism, `mvsformer_torch/parallel/`):
-   two ranks on this one card over gloo (NCCL puts one rank on a card),
-   each a process that `python -m torch.distributed.run` starts, with a
-   time limit on every launch; the kernels are built (phase 2) before any
-   rank starts. One launch runs 16a-16c, each rank writing its results to
+16. The process grid (data, view and depth parallelism,
+   `mvsformer_torch/parallel/`): two ranks on this one card over gloo
+   (NCCL puts one rank on a card), each a process that `python -m
+   torch.distributed.run` starts, with a time limit on every launch; the
+   kernels are built (phase 2) before any rank starts. One launch runs
+   16a-16c and 16e, each rank writing its results to
    a file that this process compares. 16a: phase 4's request at view 2
    (each rank the reference and 2 of the 4 sources; the view sums
    all-reduced), each rank's depth and confidence within phase 7's bounds
@@ -223,16 +227,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    a stated bound with its five mutants rejected, the loss and the running
    statistics at phase 10's bounds; K7/K8 4 launches a micro-batch a rank,
    held to their plain versions at rank 0's launches in 16c (the other
-   rank at a barrier); each rank's step ms and peak memory. 16d, three
-   torchrun launches at once beside the serial CLI in this process:
+   rank at a barrier); each rank's step ms and peak memory. 16e: phase 4's
+   request at depth 2 (every rank the whole volume, each regularising its
+   half of every stage's depth hypotheses, the halos and the logits moved
+   by all_gather), each rank's depth and confidence within phase 7's
+   bounds of phase 4's serial request and of the other rank's, its
+   launches K1-K6 at phase 4's counts, and K1-K6 held to their plain
+   versions at every launch of each rank in turn (the other at a
+   barrier). 16d, four torchrun launches at once beside the serial CLI in
+   this process:
    `python -m mvsformer_torch.train` at data 2 in the CLI's default bf16
    (gloo, both ranks on this card) for two steps on a 3-view training
    tree, whose run directory holds one set of files written by rank 0 and
    each step recorded once; `python -m mvsformer_torch.test` at view 2 on
    phase 11's plane scan against the serial CLI in this process (the same
-   files, depth and confidence within phase 7's bounds); the train CLI at
-   world 1 on NCCL for one step. Each kernel's entry of the kernels line
-   adds the ranks' launches and rank 0's checks.
+   files, depth and confidence within phase 7's bounds), and the same at
+   `--depth_parallel 2`; the train CLI at world 1 on NCCL for one step.
+   Each kernel's entry of the kernels line adds the ranks' launches and
+   checks.
 17. The rest of the model variants (ROADMAP A6), seeded by `random_init_`:
    serve the DTU request (one warm-up, one timed request, counts set to 0
    before it) with TwinMVSNet under `multi_scale` (TwinDecoderStage4V2,
@@ -259,7 +271,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    the DTU request's ViT input (5x3x576x768) with and without its cross
    blocks. Each kernel's entry of the kernels line adds this phase's
    checks and launches.
-18. Print one JSON line of per-kernel numbers, then, last, the result line
+18. The training options no shipped config sets (ROADMAP A4): 18a, one
+   fp32 step at phase 8's shape with `focal` (gamma 2) and a `grad_norm`
+   clip that binds (the global norm printed before and after it), its
+   launches counted (K7/K8 8) and K7/K8 held to their plain versions at
+   every launch; 18b, the same options at phase 10's shape on the card
+   against the CPU at phase 10's bounds; 18c, DINOMVSNet (the -p config's
+   arch with `fix` off) at phase 10's shape with `layer_decay`: card
+   against CPU at phase 10's bounds (18b and 18c's card steps under
+   deterministic cuDNN), every group's LR the same on both
+   and block i's vit_lr x layer_decay^(12 - i), and block 0's qkv update
+   on the card the CPU's and its LR's size. Each kernel's entry of the
+   kernels line adds this phase's checks and launches.
+19. Print the wall seconds of each phase, one JSON line of per-kernel
+   numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
    the CLI runs' output to chiprun_out/training_run_*.log,
    chiprun_out/dino_test.log and chiprun_out/parallel_*.log.
@@ -280,6 +305,7 @@ tensor term "operations".
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -1252,6 +1278,9 @@ PIPE_FOCAL = 1400.0          # at the image's size, as the cam files hold it
 PIPE_BASELINE = 10.0
 PIPE_PLANE = (650.0, 0.1, 0.05)
 PIPE_METHODS = ("pcd", "dpcd", "gipuma")
+# The reference views whose fusion also runs on the CPU to be compared (the
+# CPU takes ~4 s a view and method at 1152x1536; the card fuses all 6).
+PIPE_CPU_FUSE_VIEWS = (0, 3)
 PIPE_KEEP_MIN = 0.9          # of the interior (the middle 3/4 of each axis)
 PIPE_MASK_AGREE = 0.9999     # card against CPU, of the pixels
 PIPE_POINT_RTOL = 1e-4       # card against CPU where both keep, of |point|
@@ -1543,11 +1572,12 @@ def save_depth_card_vs_cpu(torch, root, device="cuda"):
 
 
 def fusion_card_vs_cpu(torch, pair, scan, method, device="cuda"):
-    """Every reference view of `scan` (pair.txt in `pair`) fused on the card
-    and on the CPU:
-    (per view: kept share of the interior on the card, mask agreement, worst
-    point error of |point| where both keep, worst distance from the plane of
-    the card's kept points in the interior, of their depth)."""
+    """Every reference view of `scan` (pair.txt in `pair`) fused on the card,
+    and the views PIPE_CPU_FUSE_VIEWS on the CPU as well:
+    (per view: kept share of the interior on the card, worst distance from
+    the plane of the card's kept points in the interior, of their depth;
+    where the CPU fused it, mask agreement and worst point error of |point|
+    where both keep, else None)."""
     import numpy as np
 
     from mvsformer_torch.fuse import FusionDataset, fuse_view, make_fuse_fn
@@ -1559,22 +1589,38 @@ def fusion_card_vs_cpu(torch, pair, scan, method, device="cuda"):
     for i in range(len(ds)):
         s = ds[i]
         mc, _, pc, _ = fuse_view(s, fn, (0.5,), torch.device(device))
-        mk, _, pk, _ = fuse_view(s, fn, (0.5,), torch.device("cpu"))
         mc, pc = mc.cpu().numpy(), pc.cpu().numpy()
-        mk, pk = mk.numpy(), pk.numpy()
+        agree = pt_err = None
+        if i in PIPE_CPU_FUSE_VIEWS:
+            mk, _, pk, _ = fuse_view(s, fn, (0.5,), torch.device("cpu"))
+            mk, pk = mk.numpy(), pk.numpy()
+            both = mc & mk
+            agree = float((mc == mk).mean())
+            pt_err = float((np.abs(pc[both] - pk[both]).max(axis=1)
+                            / np.linalg.norm(pk[both], axis=1)).max(initial=0.0))
         h, w = mc.shape
         interior = mc[h // 8:h - h // 8, w // 8:w - w // 8]
-        both = mc & mk
-        pt_err = (np.abs(pc[both] - pk[both]).max(axis=1)
-                  / np.linalg.norm(pk[both], axis=1)).max(initial=0.0)
         inner = np.zeros_like(mc)
         inner[h // 8:h - h // 8, w // 8:w - w // 8] = True
         x, y, z = pc[mc & inner].T  # border pixels may average in a blended source sample
         plane = z0 + b * x + c * y
         rows.append(dict(view=s["ref_id"], kept_interior=float(interior.mean()),
-                         mask_agree=float((mc == mk).mean()), point_rel_err=float(pt_err),
+                         mask_agree=agree, point_rel_err=pt_err,
                          plane_rel_err=float((np.abs(z - plane) / plane).max(initial=0.0))))
     return rows
+
+
+def subphase_clock(first):
+    """A clock for a phase's subphases: `mark(label)` prints the wall
+    seconds of the subphase that ends there (`first` the one that starts
+    with the clock) and starts `label` (None: the last has ended)."""
+    last = [time.perf_counter(), first]
+
+    def mark(label):
+        now = time.perf_counter()
+        print(f"{last[1]}: {now - last[0]:.1f} s", flush=True)
+        last[0], last[1] = now, label
+    return mark
 
 
 def pipeline_phase(torch, card, specs, device="cuda"):
@@ -1599,6 +1645,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
     os.makedirs(root)
     torch.cuda.reset_peak_memory_stats()
     try:
+        subphase = subphase_clock("11a")
         # 11a. The scan, and the PNG decode of one 1600x1200 image.
         t0 = time.perf_counter()
         data = write_dtu_scan(root)
@@ -1612,6 +1659,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
               + f"; the adaptive copy's rows by filter (None, Sub, Up, Average, Paeth): "
               f"{filters} [{card}]", flush=True)
 
+        subphase("11b")
         # 11b. save_depth on the card at the default ModelConfig, every launch
         # count set to 0 just before it and read just after.
         model = build_model(ModelConfig(), device=device)
@@ -1645,6 +1693,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
         if metrics is None or len(metrics) != 7:
             raise RuntimeError("save_depth wrote no depth metrics for a scan with ground truth")
 
+        subphase("11c")
         # 11c. The same save_depth under torch.profiler: the device's idle share.
         from torch.profiler import ProfilerActivity, profile
 
@@ -1666,6 +1715,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
 
         path_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
+        subphase("11d")
         # 11d. View 0 on disk against make_infer_fn on the same sample. With
         # cuDNN free to pick its algorithms the forward varies from run to run
         # (the bound is the card-to-CPU one); the op that varies is found by
@@ -1722,6 +1772,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
         del model, infer, inputs
         torch.cuda.empty_cache()
 
+        subphase("11e")
         # 11e. save_depth on the card against the CPU, small shape.
         ok, small_errs = save_depth_card_vs_cpu(torch, root, device)
         print(f"save_depth {PIPE_SMALL['max_hw']} on the card against the CPU: "
@@ -1732,6 +1783,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
         if not ok:
             raise RuntimeError("save_depth on the card disagrees with the CPU")
 
+        subphase("11f")
         # 11f. Fusion of the plane's exact depths, card against CPU, then
         # fuse_scan on the card (timed per view).
         pair = os.path.join(data, "scan1")
@@ -1743,10 +1795,11 @@ def pipeline_phase(torch, card, specs, device="cuda"):
             n = fuse_scan(pair, plane, os.path.join(root, f"plane_{method}.ply"), method=method,
                           device=device, logger=lambda *a: None, timings=view_ms)
             keep = min(r["kept_interior"] for r in rows)
-            agree = min(r["mask_agree"] for r in rows)
-            pt = max(r["point_rel_err"] for r in rows)
+            agree = min(r["mask_agree"] for r in rows if r["mask_agree"] is not None)
+            pt = max(r["point_rel_err"] for r in rows if r["point_rel_err"] is not None)
             off = max(r["plane_rel_err"] for r in rows)
-            print(f"fusion {method} of the plane, card against CPU: kept share of the interior "
+            print(f"fusion {method} of the plane, card against CPU (views "
+                  f"{list(PIPE_CPU_FUSE_VIEWS)}): kept share of the interior "
                   f"{keep:.4f} (min over views; > {PIPE_KEEP_MIN}), mask agreement {agree:.6f} "
                   f"(>= {PIPE_MASK_AGREE}), points {pt:.2e} of |point| (<= {PIPE_POINT_RTOL:g}), "
                   f"off the plane {off:.2e} of its depth (<= {PIPE_PLANE_RTOL:g}); {n} points",
@@ -1759,6 +1812,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
                 raise RuntimeError(f"fusion {method} of the plane failed its checks: {rows}")
             fusion[method] = dict(views=rows, view_ms=view_ms, points=n)
 
+        subphase("11g")
         # 11g. Fusion of the random weights' depth maps, as a smoke run. Their
         # confidences lie far below the default threshold of 0.5, so the
         # consistency check alone decides here.
@@ -1770,6 +1824,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
                                       logger=lambda *a: None)
             if not os.path.exists(ply):
                 raise RuntimeError(f"fusion {method}: no PLY")
+        subphase(None)
         print("fusion of the random weights' depths (confidence threshold 0): "
               + ", ".join(f"{m} {n} points" for m, n in smoke.items()))
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1908,12 +1963,12 @@ def record_calls(torch, specs, fn, *args):
     return recorded, out
 
 
-def check_epoch_records(recs, epoch, crops, steps, card):
+def check_epoch_records(recs, epoch, crops, steps, card, validated=True):
     """The records of one epoch of the CLI: its steps (finite losses, the
     barrels' crop sizes, K7/K8 4 times a micro-batch and K1-K6 never), its
-    validation (K1-K6 at their per-batch counts) and its checkpoints. Prints
-    the per-step, validation and checkpoint lines; returns the epoch's
-    records by kind."""
+    validation where `validated` (K1-K6 at their per-batch counts; none
+    otherwise) and its checkpoints. Prints the per-step, validation and
+    checkpoint lines; returns the epoch's records by kind."""
     import math
 
     mine = {kind: [r for r in recs if r.get("epoch") == epoch and r["kind"] == kind]
@@ -1936,21 +1991,26 @@ def check_epoch_records(recs, epoch, crops, steps, card):
               f"{r['wait_ms']:.1f} ms on the loader, loss {r['loss']:.5f}, lr {r['lr']:.4e} "
               f"[{card}]")
     ep, val = mine["train_epoch"][0], mine["val"]
-    if len(val) != 1:
-        raise RuntimeError(f"epoch {epoch}: {len(val)} validations")
-    val = val[0]
-    n_val = len(val["batch_ms"])
-    want = {name: n * n_val for name, n in EVAL_PER_BATCH.items() if n}
-    if val["launches"] != want:
-        raise RuntimeError(f"epoch {epoch} validation: launches {val['launches']}, want {want}")
+    if len(val) != int(validated):
+        raise RuntimeError(f"epoch {epoch}: {len(val)} validations, want {int(validated)}")
+
     def gb(x):
         return "not measured" if x is None else f"{x:.2f} GB"
 
+    text = "no validation"
+    if validated:
+        val = val[0]
+        n_val = len(val["batch_ms"])
+        want = {name: n * n_val for name, n in EVAL_PER_BATCH.items() if n}
+        if val["launches"] != want:
+            raise RuntimeError(f"epoch {epoch} validation: launches {val['launches']}, "
+                               f"want {want}")
+        text = (f"validation {n_val} batches at " + ", ".join(f"{t:.1f}" for t in val["batch_ms"])
+                + f" ms, load {val['load_ms_per_sample']:.1f} ms per sample, peak memory "
+                f"{gb(val['peak_memory_gb'])}, mean_error {val['mean_error']:.5f}")
     print(f"training run epoch {epoch}: load {ep['load_ms_per_sample']:.1f} ms per training "
           f"sample ({ep['samples_loaded']} read), peak memory {gb(ep['peak_memory_gb'])}; "
-          f"validation {n_val} batches at " + ", ".join(f"{t:.1f}" for t in val["batch_ms"])
-          + f" ms, load {val['load_ms_per_sample']:.1f} ms per sample, peak memory "
-          f"{gb(val['peak_memory_gb'])}, mean_error {val['mean_error']:.5f} [{card}]")
+          f"{text} [{card}]")
     for c in mine["checkpoint"]:
         print(f"training run checkpoint {c['name']} at step {c['global_step']}: "
               f"{c['ms']:.1f} ms, {c['bytes'] / 1e6:.1f} MB [{card}]")
@@ -1984,6 +2044,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
+        subphase = subphase_clock("12a")
         # 12a. The tree and the config as it ships, but for the paths and the run's length.
         t0 = time.perf_counter()
         data = os.path.join(root, "dtu")
@@ -2005,24 +2066,38 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         run_dir = os.path.join(cfg.trainer.save_dir, "models", cfg.name)
         config1, config2 = os.path.join(root, "run1.json"), os.path.join(root, "run2.json")
         save_config(cfg, config1)
-        cfg.trainer.epochs = 2
+        # The resumed epoch skips its validation (epoch 1's runs the same code).
+        cfg.trainer.epochs, cfg.trainer.eval_freq = 2, 3
         save_config(cfg, config2)
         print(f"training run tree: {RUN_VIEWS} views x {DTU_LIGHTS} lights ({RUN_REFS} "
               f"references) of "
               f"{PIPE_IMG_HW[1]}x{PIPE_IMG_HW[0]} PNG, written in {time.perf_counter() - t0:.1f} s; "
               f"rows by filter (None, Sub, Up, Average, Paeth): {filters}", flush=True)
 
-        # 12b. Epoch 1 through the CLI, its profile window, then epoch 2 by --resume.
+        subphase("12b")
+        # 12b. Epoch 1 through the CLI, its profile window, then epoch 2 by
+        # --resume beside 12d's test CLI on epoch 1's model_best (the resumed
+        # epoch does not validate, so it leaves model_best as it was).
         pdir = os.path.join(root, "profile")
         run1_s = run_cli("mvsformer_torch.train", [
             "--config", config1, "--profile_dir", pdir, "--profile_start", str(RUN_PROFILE[0]),
             "--profile_steps", str(RUN_PROFILE[1])] + cli_device, "training_run_1")
-        run2_s = run_cli("mvsformer_torch.train", ["--config", config2, "--resume"] + cli_device,
-                         "training_run_2")
+        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        out = os.path.join(root, "test_out")
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            run2 = pool.submit(run_cli, "mvsformer_torch.train",
+                               ["--config", config2, "--resume"] + cli_device, "training_run_2")
+            test = pool.submit(run_cli, "mvsformer_torch.test", [
+                "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", run_dir,
+                "--which_ckpt", "model_best", "--outdir", out, "--skip_fusion", "--max_h",
+                str(H), "--max_w", str(W), "--ndepths", str(NDEPTH_FULL), "--num_view",
+                str(PIPE_NUM_VIEW)] + cli_device, "training_run_test")
+            run2_s, test_s = run2.result(), test.result()
         recs = read_records(run_dir)
         crops = [tuple(msa.scales[::-1][i % len(msa.scales)]) for i in range(steps)]
         epochs = {e: check_epoch_records(recs, e, crops,
-                                         range(1 + (e - 1) * steps, 1 + e * steps), card)
+                                         range(1 + (e - 1) * steps, 1 + e * steps), card,
+                                         validated=e == 1)
                   for e in (1, 2)}
         names = {c["name"] for c in epochs[1]["checkpoint"]}
         if names != {"model_step", "model_best", "model_last"}:
@@ -2055,6 +2130,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
               f"{profile['kernel_ms'] or 0:.1f} ms of kernels, device idle share {idle} [{card}]",
               flush=True)
 
+        subphase("12c")
         # 12c. model_last restored in this process equals the file bit for bit.
         class Epoch:
             def __len__(self):
@@ -2080,15 +2156,10 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         print(f"model_last restored: {len(saved['state_dict'])} tensors (parameters and BN "
               f"buffers) and the AdamW moments of {len(opt)} tensors bit-equal to the file")
 
-        # 12d. The test CLI on phase 11's eval scan, against make_infer_fn.
-        eval_data = write_dtu_scan(os.path.join(root, "eval"))
-        out = os.path.join(root, "test_out")
-        test_s = run_cli("mvsformer_torch.test", [
-            "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", run_dir,
-            "--which_ckpt", "model_best", "--outdir", out, "--skip_fusion", "--max_h", str(H),
-            "--max_w", str(W), "--ndepths", str(NDEPTH_FULL), "--num_view", str(PIPE_NUM_VIEW)]
-            + cli_device, "training_run_test")
-        # The CLI computes in bf16, its default: make_infer_fn of the bf16 model.
+        subphase("12d")
+        # 12d. The test CLI's files (12b ran it on phase 11's eval scan),
+        # against make_infer_fn. The CLI computes in bf16, its default:
+        # make_infer_fn of the bf16 model.
         best = build_model(cfg.arch, device=device, dtype=torch.bfloat16)
         load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), best)
         ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
@@ -2101,7 +2172,8 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
                              - depth[0].cpu().numpy()).max())
         gap_c = float(np.abs(np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
                              - conf[0].cpu().numpy()).max())
-        print(f"test CLI on model_best ({test_s:.1f} s, bf16): view 0 against make_infer_fn of "
+        print(f"test CLI on model_best ({test_s:.1f} s beside the resumed run, bf16): view 0 "
+              f"against make_infer_fn of "
               f"the restored bf16 model: depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance "
               f"{E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})", flush=True)
         if gap_d > E2E_DEPTH_ATOL or gap_c > E2E_CONF_ATOL:
@@ -2109,6 +2181,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         del best, depth, conf
         torch.cuda.empty_cache()
 
+        subphase("12e")
         # 12e. The kernels at the run's new shapes: one validation batch (B=8,
         # 512x640) and one training micro-batch at 1024x1280.
         dkw = dict(nviews=cfg.data.nviews, ndepths=cfg.data.num_depths,
@@ -2142,11 +2215,12 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
                           for i, (args, kwargs) in enumerate(calls)]
         del val_calls, train_calls
 
+        subphase("12f")
         # 12f. The crop sweep: at each crop size one training micro-batch of 1
         # sample and one eval forward of 1 sample, all outputs finite.
         sweep = []
         infer = make_infer_fn(trainer.model)
-        for h, w in msa.scales:
+        for h, w in msa.scales[::-2]:  # every other crop size, from the largest
             cuda_build.reset_launches()
             t0 = time.perf_counter()
             metrics = trainer.step(synthetic_batch(torch, 1, cfg.data.nviews, h, w, device=device,
@@ -2169,6 +2243,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
                 raise RuntimeError(f"crop {h}x{w}: launches {counts}, want {want}")
             sweep.append({"crop": [h, w], "train_ms": train_ms, "eval_ms": eval_ms,
                           "loss": metrics["loss"]})
+        subphase(None)
         print(f"crop sweep, 1 sample, {cfg.data.nviews} views (training micro-batch ms / eval "
               "forward ms): "
               + ", ".join(f"{r['crop'][0]}x{r['crop'][1]} {r['train_ms']:.0f}/{r['eval_ms']:.0f}"
@@ -3231,15 +3306,15 @@ def _par_config(norm, micro):
 
 
 def parallel_rank(job_path, card, device_name):
-    """One rank of 16a-16c, started by torchrun: join the gloo group on
-    `device_name` (every rank on one card), then
+    """One rank of 16a-16c and 16e, started by torchrun: join the gloo
+    group on `device_name` (every rank on one card), then
     16a: the DTU request at view 2 (phase 4's model and weights), K1-K6
     held to their plain versions at rank 0's launches; 16b: phase 8's step
     at data 2 with SyncBN (micro-batches of TRAIN_MICRO / 2 a rank); 16c:
-    the step at view 2 under GN (K7/K8 held at rank 0's launches). Rank 0
-    checks while the other rank waits at a barrier. Each run with the
-    launch counts set to 0 just before it; the results go to
-    <out>/rank<r>.pt."""
+    the step at view 2 under GN (K7/K8 held at rank 0's launches); 16e:
+    the DTU request at depth 2, K1-K6 held at every rank's launches. A rank
+    checks while the other waits at a barrier. Each run with the launch
+    counts set to 0 just before it; the results go to <out>/rank<r>.pt."""
     import torch
     import torch.distributed as dist
 
@@ -3344,6 +3419,36 @@ def parallel_rank(job_path, card, device_name):
         torch.cuda.empty_cache()
     # 16c. The step at view 2 under GN: every sample, the reference and half the sources.
     res["16c"] = step_run(make_layout(1, PAR_RANKS), "GN", TRAIN_MICRO, batch)
+    del batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 16e. The request at depth 2 (phase 4's model and weights): every rank
+    # computes the whole volume and regularises its half of each stage's
+    # depth hypotheses (the halo exchange by all_gather over gloo), then
+    # decodes the gathered logits. K1-K6 held to their plain versions at
+    # every launch of every rank, one rank at a time.
+    layout = make_layout(1, 1, PAR_RANKS)
+    model = build_model(ModelConfig(), device=device, layout=layout)
+    random_init_(model, torch.Generator().manual_seed(0))
+    fn = make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0))
+    imgs, projs, dv = synthetic_request(torch, B, V, H, W, device=device)
+    fn(imgs, projs, dv)  # warm-up
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    (rec, (depth, conf, _)), counts, ms = driven(record_calls, torch, k16, fn, imgs, projs, dv)
+    res["16e"] = {"depth": depth.cpu(), "conf": conf.cpu(), "launches": counts, "ms": ms,
+                  "peak_gb": peak_gb(), "rows": {}}
+    dist.barrier()
+    for r in range(PAR_RANKS):
+        if rank == r and on_card:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            res["16e"]["rows"] = {name: [check_kernel(
+                torch, card, name, k16[name], f"depth rank {r} " + call_label(name, i, a), a, k)
+                for i, (a, k) in enumerate(calls)] for name, calls in rec.items()}
+        dist.barrier()
+    del model, fn, rec, imgs, projs, dv, depth, conf
     torch.save(res, os.path.join(job["out"], f"rank{rank}.pt"))
     dist.destroy_process_group()
 
@@ -3597,11 +3702,42 @@ def parallel_phase(torch, card, specs, serial, device="cuda"):
                 torch.cuda.empty_cache()
         for name, rs in ranks[0]["16c"].get("rows", {}).items():
             rows[name] = rs
-        ranks_meta = [{k: r[k] for k in ("16a", "16b", "16c")} for r in ranks]
+
+        # 16e. Against phase 4's serial request, launches on every rank.
+        errs_e = []
+        for r in ranks:
+            e = r["16e"]
+            errs_e.append((float((e["depth"] - serial[0].cpu()).abs().max()),
+                           float((e["conf"] - serial[1].cpu()).abs().max())))
+            want = {n: s["per_request"] for n, s in specs.items()} if device != "cpu" else {}
+            if e["launches"] != want:
+                raise RuntimeError(f"16e rank {r['rank']}: launches {e['launches']}, "
+                                   f"want {want}")
+            add_launches(e["launches"])
+            for name, rs in e["rows"].items():
+                rows[name] = rows.get(name, []) + rs
+            print(f"16e rank {r['rank']} (depth {PAR_RANKS}): request {e['ms']:.1f} ms "
+                  f"(recorded), peak {e['peak_gb']:.3f} GB; "
+                  f"launches {e['launches']}; depth {errs_e[-1][0]:.3e}, confidence "
+                  f"{errs_e[-1][1]:.3e} from phase 4's serial request [{card}]", flush=True)
+        between_e = (max(float((r["16e"]["depth"] - ranks[0]["16e"]["depth"]).abs().max())
+                         for r in ranks),
+                     max(float((r["16e"]["conf"] - ranks[0]["16e"]["conf"]).abs().max())
+                         for r in ranks))
+        worst_e = (max(e[0] for e in errs_e), max(e[1] for e in errs_e))
+        print(f"16e depth {PAR_RANKS} against phase 4's serial request: depth {worst_e[0]:.3e}, "
+              f"confidence {worst_e[1]:.3e}; the ranks against each other: depth "
+              f"{between_e[0]:.3e}, confidence {between_e[1]:.3e} (bounds {E2E_DEPTH_ATOL:g}, "
+              f"{E2E_CONF_ATOL:g})", flush=True)
+        if (max(worst_e[0], between_e[0]) > E2E_DEPTH_ATOL
+                or max(worst_e[1], between_e[1]) > E2E_CONF_ATOL):
+            raise RuntimeError("16e: the depth-slab request disagrees with the serial one")
+        ranks_meta = [{k: r[k] for k in ("16a", "16b", "16c", "16e")} for r in ranks]
         for r in ranks_meta:
             for k in ("16b", "16c"):
                 r[k] = {f: v for f, v in r[k].items() if f not in ("grads", "buffers", "rows")}
-            r["16a"] = {f: v for f, v in r["16a"].items() if f not in ("depth", "conf", "rows")}
+            for k in ("16a", "16e"):
+                r[k] = {f: v for f, v in r[k].items() if f not in ("depth", "conf", "rows")}
         del batch, ranks
 
         # 16d. The CLIs under torchrun: the three launches run at once, beside
@@ -3653,6 +3789,10 @@ def parallel_phase(torch, card, specs, serial, device="cuda"):
                 os.path.join(root, "grid_out")) + ["--view_parallel", str(PAR_RANKS),
                                                    "--dist_backend", "gloo"] + dev_flag,
                 "parallel_test_cli"),
+            "depth": Torchrun(["-m", "mvsformer_torch.test"] + test_args(
+                os.path.join(root, "depth_out")) + ["--depth_parallel", str(PAR_RANKS),
+                                                    "--dist_backend", "gloo"] + dev_flag,
+                "parallel_depth_cli"),
             "nccl": Torchrun(["-m", "mvsformer_torch.train", "--config", configs["nccl"],
                               "--dist_backend", "nccl" if nccl else "gloo", "--dtype", "fp32"]
                              + ([] if nccl else dev_flag), "parallel_nccl_cli", nproc=1)}
@@ -3698,25 +3838,33 @@ def parallel_phase(torch, card, specs, serial, device="cuda"):
             return sorted(os.path.relpath(os.path.join(d, f), top)
                           for d, _, fs in os.walk(top) for f in fs)
 
-        one, two = tree(os.path.join(root, "serial")), tree(os.path.join(root, "grid_out"))
-        if one != two or not one:
-            raise RuntimeError(f"16d test CLI: the view-split run wrote {len(two)} files, the "
-                               f"serial one {len(one)}, or other names")
-        gaps = [0.0, 0.0]
-        for f in one:
-            if f.endswith(".pfm"):
-                a, b = (read_pfm(os.path.join(root, d, f))[0] for d in ("serial", "grid_out"))
-                gaps[0] = max(gaps[0], float(np.abs(a - b).max()))
-            elif f.endswith(".npy"):
-                a, b = (np.load(os.path.join(root, d, f)) for d in ("serial", "grid_out"))
-                gaps[1] = max(gaps[1], float(np.abs(a - b).max()))
-        print(f"16d test CLI, view {PAR_RANKS} (gloo, {dev_arg}, fp32, {PIPE_NUM_VIEW} views a "
-              f"request at {H}x{W}): {cli_s['test']:.1f} s (serial {serial_s:.1f} s in this "
-              f"process); the same {len(one)} files; depth {gaps[0]:.3e}, confidence "
-              f"{gaps[1]:.3e} from the serial CLI's (bounds {E2E_DEPTH_ATOL:g}, "
-              f"{E2E_CONF_ATOL:g}) [{card}]", flush=True)
-        if gaps[0] > E2E_DEPTH_ATOL or gaps[1] > E2E_CONF_ATOL:
-            raise RuntimeError("16d: the view-split test CLI disagrees with the serial one")
+        def cli_gaps(out, what, key):
+            """The files of a test CLI run under torchrun against the serial
+            CLI's: the same names, depth and confidence within phase 7's
+            bounds."""
+            one, two = tree(os.path.join(root, "serial")), tree(os.path.join(root, out))
+            if one != two or not one:
+                raise RuntimeError(f"16d test CLI: the {what} run wrote {len(two)} files, the "
+                                   f"serial one {len(one)}, or other names")
+            gaps = [0.0, 0.0]
+            for f in one:
+                if f.endswith(".pfm"):
+                    a, b = (read_pfm(os.path.join(root, d, f))[0] for d in ("serial", out))
+                    gaps[0] = max(gaps[0], float(np.abs(a - b).max()))
+                elif f.endswith(".npy"):
+                    a, b = (np.load(os.path.join(root, d, f)) for d in ("serial", out))
+                    gaps[1] = max(gaps[1], float(np.abs(a - b).max()))
+            print(f"16d test CLI, {what} (gloo, {dev_arg}, fp32, {PIPE_NUM_VIEW} views a "
+                  f"request at {H}x{W}): {cli_s[key]:.1f} s (serial {serial_s:.1f} s in this "
+                  f"process); the same {len(one)} files; depth {gaps[0]:.3e}, confidence "
+                  f"{gaps[1]:.3e} from the serial CLI's (bounds {E2E_DEPTH_ATOL:g}, "
+                  f"{E2E_CONF_ATOL:g}) [{card}]", flush=True)
+            if gaps[0] > E2E_DEPTH_ATOL or gaps[1] > E2E_CONF_ATOL:
+                raise RuntimeError(f"16d: the {what} test CLI disagrees with the serial one")
+            return gaps
+
+        gaps = cli_gaps("grid_out", f"view {PAR_RANKS}", "test")
+        depth_gaps = cli_gaps("depth_out", f"depth {PAR_RANKS}", "depth")
 
         # The train CLI at world 1 on NCCL, one step.
         recs = read_records(os.path.join(cfg.trainer.save_dir, "models", "nccl"))
@@ -3736,8 +3884,12 @@ def parallel_phase(torch, card, specs, serial, device="cuda"):
                                                             "launches", "metrics")}
                                    for k in ("16b", "16c")} for r in ranks_meta],
                    "16bc": checks,
+                   "16e_errors": errs_e, "16e_between_ranks": between_e,
+                   "16e": [{k: r["16e"][k] for k in ("ms", "peak_gb", "launches")}
+                           for r in ranks_meta],
                    "train_cli_s": cli_s["train"], "test_cli_s": cli_s["test"],
                    "serial_test_cli_s": serial_s, "test_cli_gaps": gaps,
+                   "depth_cli_s": cli_s["depth"], "depth_cli_gaps": depth_gaps,
                    "nccl_cli_s": cli_s["nccl"],
                    "phase_s": time.perf_counter() - t_phase}
     finally:
@@ -4085,6 +4237,245 @@ def variants_a6_phase(torch, card, eval_specs, device="cuda"):
     return {"rows": rows, "launches": total, "details": details}
 
 
+# The training options no shipped config sets (phase 18, ROADMAP A4): the
+# focal ce loss (gamma 2) with a global-norm clip that binds, and DINO's
+# layer decay with the ViT trained (fix off). The clip at phase 8's shape
+# is about a tenth of the global norm its step reads at random weights
+# (1.9), and 1e-2 at phase 10's small shape: each binds, which the phase
+# checks.
+OPT_CLIP = {"full": 0.2, "small": 1e-2}
+OPT_GAMMA = 2.0
+
+
+def options_config(over_arch=None, over_opt=None, base=None):
+    """Phase 8's Config (or `base`) with `over_arch` / `over_opt` set."""
+    from mvsformer_torch.config import Config
+
+    cfg = base if base is not None else Config()
+    for k, v in (over_arch or {}).items():
+        setattr(cfg.arch, k, v)
+    for k, v in (over_opt or {}).items():
+        setattr(cfg.optimizer, k, v)
+    return cfg
+
+
+def clipped_norm(torch, model) -> float:
+    """The global norm of the gradients a step left (after its clip)."""
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad) for p in model.parameters() if p.grad is not None])))
+
+
+def options_small(cfg):
+    """`cfg` at phase 10's shape: drop path 0, no warmup, micro-batches of 1."""
+    cfg.arch.vit_args.drop_path_rate = 0.0
+    cfg.optimizer.warmup_steps = 0
+    cfg.data.multi_scale_args.scale_batch_map = {str(STEP_SHAPE[2]): 1}
+    return cfg
+
+
+def layer_decay_config():
+    """18c's config: the -p config (DINO, layer decay) at phase 10's
+    shape, the ViT trained (`fix` off)."""
+    from mvsformer_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = options_small(load_config(os.path.join(here, DINO_CONFIG)))
+    cfg.arch.fix = False
+    return cfg
+
+
+def worst_of_scale(got, want):
+    """(the largest max |got - want| / max |want| over the tensors whose
+    norm exceeds 1e-4, that tensor's name): compare_steps' reading."""
+    worst, at = 0.0, None
+    for n, w in want.items():
+        if float(w.norm()) > 1e-4:
+            e = float((got[n].cpu().to(w.dtype) - w).abs().max()) / float(w.abs().max())
+            if e > worst:
+                worst, at = e, n
+    return worst, at
+
+
+def options_step_pair(torch, label, cfg, seed, card, device="cuda", card_math=None,
+                      arbiter=False):
+    """One step of `cfg` at phase 10's shape from the same weights
+    (`random_init_` at `seed`) on the card, under `card_math(torch)` (a
+    context; by default `deterministic_math`), and on the CPU, compared by
+    compare_steps at phase 10's bounds. With `arbiter`, also a float64 CPU
+    step from the same weights: the largest gradient error of scale of the
+    card's and of the CPU's fp32 step against it (which of the two fp32
+    steps the card-CPU gap comes from). Prints the readings; returns
+    (card model, CPU model, card step, CPU step, the weights before,
+    details with "ok")."""
+    import copy
+
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.train.step import TrainStep
+
+    sb, sv, sh, sw = STEP_SHAPE
+    cpu_model = build_model(cfg.arch, device="cpu", train=True)
+    random_init_(cpu_model, torch.Generator().manual_seed(seed))
+    card_model = copy.deepcopy(cpu_model).to(device)
+    model64 = copy.deepcopy(cpu_model).double() if arbiter else None
+    before = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    t0 = time.perf_counter()
+    card_step, cpu_step = TrainStep(card_model, cfg, seed=0), TrainStep(cpu_model, cfg, seed=0)
+    with (card_math or deterministic_math)(torch):
+        card_m = card_step(synthetic_batch(torch, sb, sv, sh, sw, device=device, with_gt=True))
+    cpu_m = cpu_step(synthetic_batch(torch, sb, sv, sh, sw, device="cpu", with_gt=True))
+    ok, errs, lines = compare_steps(torch, card_model, cpu_model, before, card_m, cpu_m,
+                                    cfg.optimizer)
+    print(f"{label} step {STEP_SHAPE} on the card against the CPU "
+          f"({time.perf_counter() - t0:.1f} s): loss {card_m['loss']:.6f} / "
+          f"{cpu_m['loss']:.6f}; grad norm {card_m['grad_norm']:.5f} / "
+          f"{cpu_m['grad_norm']:.5f} before the clip, {clipped_norm(torch, card_model):.5f}"
+          f" / {clipped_norm(torch, cpu_model):.5f} after it; worst errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (phase 10's bounds) " + ("ok" if ok else "FAILED") + f" [{card}]", flush=True)
+    for line in lines[-10:]:
+        print(f"  {line}")
+    details = {"ok": ok, "errors": errs, "card": card_m, "cpu": cpu_m}
+    if arbiter:
+        TrainStep(model64, cfg, seed=0)(
+            synthetic_batch(torch, sb, sv, sh, sw, device="cpu", with_gt=True))
+        g64 = grads_of(model64)
+        card_g, cpu_g = grads_of(card_model), grads_of(cpu_model)
+        pair = worst_of_scale(card_g, cpu_g)
+        card64, cpu64 = worst_of_scale(card_g, g64), worst_of_scale(cpu_g, g64)
+        at = pair[1] or card64[1]  # the two fp32 steps may agree exactly (the CPU twice)
+        w64 = g64[at]
+        at_card = float((card_g[at].cpu().double() - w64).abs().max()) / float(w64.abs().max())
+        at_cpu = float((cpu_g[at].double() - w64).abs().max()) / float(w64.abs().max())
+        print(f"  against a float64 CPU step: card {card64[0]:.3e} of scale (at {card64[1]}), "
+              f"CPU fp32 {cpu64[0]:.3e} (at {cpu64[1]}); at {at}, where the card and the CPU "
+              f"differ most ({pair[0]:.3e}): card {at_card:.3e}, CPU fp32 {at_cpu:.3e}",
+              flush=True)
+        details["arbiter"] = {"card": card64, "cpu": cpu64, "pair": pair,
+                              "at_pair": [at_card, at_cpu]}
+        del model64
+    return card_model, cpu_model, card_step, cpu_step, before, details
+
+
+def options_phase(torch, card, device="cuda"):
+    """Phase 18: (a) one fp32 step at phase 8's shape with focal (gamma 2)
+    and a binding `grad_norm` clip, K7/K8 held to their plain versions at
+    every launch; (b) the same options at phase 10's shape, card against
+    CPU at phase 10's bounds; (c) DINOMVSNet (the -p config's arch, fix
+    off) at phase 10's shape with `layer_decay`: every group's LR and a
+    block's update, card against CPU. (b) and (c) run under deterministic
+    cuDNN (`options_step_pair`). Returns {"rows", "launches", "details"}."""
+    import math
+
+    from mvsformer_torch.config import Config
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.ops import cuda_build
+    from mvsformer_torch.train.step import TrainStep
+
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    nstages = len(Config().arch.ndepths)
+    n_micro = TRAIN_B // TRAIN_MICRO
+    specs = train_kernel_specs(per_step=nstages * n_micro)
+    focal = {"focal": True, "gamma": OPT_GAMMA}
+
+    # 18a. Phase 8's step with focal and the clip.
+    cfg = options_config(focal, {"grad_norm": OPT_CLIP["full"]})
+    model = build_model(cfg.arch, device=device, train=True)
+    random_init_(model, torch.Generator().manual_seed(1))
+    step = TrainStep(model, cfg, seed=0)
+    batch = synthetic_batch(torch, TRAIN_B, TRAIN_V, TRAIN_H, TRAIN_W, device=device,
+                            with_gt=True)
+    step(batch)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    recorded, metrics = record_calls(torch, specs, step, batch)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_build.LAUNCHES)
+    after = clipped_norm(torch, model)
+    want = {n: (sp["per_step"] if on_card else 0) for n, sp in specs.items()}
+    if {n: launches.get(n, 0) for n in specs} != want or set(launches) - set(specs):
+        raise RuntimeError(f"18a: launches {launches}, want {want}")
+    clip = OPT_CLIP["full"]
+    if not (math.isfinite(metrics["loss"]) and metrics["grad_norm"] > clip
+            and abs(after - clip) <= 1e-4 * clip):
+        raise RuntimeError(f"18a: loss {metrics['loss']}, grad norm {metrics['grad_norm']} "
+                           f"before the clip and {after} after it, clip {clip}")
+    print(f"18a focal (gamma {OPT_GAMMA:g}) step, {TRAIN_B} as {n_micro} micro-batches of "
+          f"{TRAIN_MICRO}, {TRAIN_V} views, {TRAIN_H}x{TRAIN_W}: {step_ms:.1f} ms (recorded), "
+          f"loss {metrics['loss']:.5f}; grad norm {metrics['grad_norm']:.5f} before the clip, "
+          f"{after:.5f} after it (grad_norm {clip:g}); launches {launches} [{card}]", flush=True)
+    rows = {}
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        rows = {name: [check_kernel(torch, card, name, sp, f"focal micro{i // nstages + 1} "
+                                    + call_label(name, i % nstages, a), a, k)
+                       for i, (a, k) in enumerate(recorded[name])]
+                for name, sp in specs.items()}
+    details = {"18a": {"ms": step_ms, "metrics": metrics, "norm_after_clip": after,
+                       "launches": launches}}
+    del recorded, model, step, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # 18b and 18c. Card against CPU at phase 10's shape.
+    cfg = options_small(options_config(focal, {"grad_norm": OPT_CLIP["small"]}))
+    card_model, cpu_model, _, _, _, details["18b"] = options_step_pair(
+        torch, "18b focal + clip", cfg, 2, card, device)
+    if not details["18b"]["ok"]:
+        raise RuntimeError("18b: the step on the card disagrees with the CPU step")
+    if not details["18b"]["cpu"]["grad_norm"] > OPT_CLIP["small"]:
+        raise RuntimeError("18b: the clip did not bind")
+    del card_model, cpu_model
+
+    # 18c. DINO with layer decay: the -p config's arch, the ViT trained.
+    cfg = layer_decay_config()
+    card_model, cpu_model, card_step, cpu_step, before, details["18c"] = options_step_pair(
+        torch, f"18c DINO layer decay {cfg.optimizer.layer_decay:g}", cfg, 3, card, device)
+    if not details["18c"]["ok"]:
+        raise RuntimeError("18c: the step on the card disagrees with the CPU step")
+    groups = {}  # each group's LR in the step (warmup 0: the schedule's factor is 1)
+    for gc, gp, lc, lp in zip(card_step.optimizer.param_groups, cpu_step.optimizer.param_groups,
+                              card_step.scheduler.base_lrs, cpu_step.scheduler.base_lrs):
+        if gc["group"] != gp["group"] or lc != lp or gc["lr"] != gp["lr"]:
+            raise RuntimeError(f"18c: group {gc['group']} LR {lc} on the card, "
+                               f"{gp['group']} {lp} on the CPU")
+        groups[gc["group"]] = lc
+    depth = len(cpu_model.vit.blocks)
+    vit_lr, decay = cfg.optimizer.vit_lr, cfg.optimizer.layer_decay
+    for i in range(depth):
+        want_lr = vit_lr * decay ** (depth - i)
+        if not math.isclose(groups[f"vit_decay_layer{i + 1}"], want_lr, rel_tol=1e-12):
+            raise RuntimeError(f"18c: block {i}'s LR {groups[f'vit_decay_layer{i + 1}']}, "
+                               f"want {want_lr}")
+    # Block 0's qkv weight: the first Adam step moves each entry by its
+    # group's LR times the gradient's sign (plus the decay), on both sides.
+    name = "vit.blocks.0.attn.qkv.weight"
+    lr0 = groups["vit_decay_layer1"]
+    p_card = dict(card_model.named_parameters())[name].detach().cpu() - before[name]
+    p_cpu = dict(cpu_model.named_parameters())[name].detach() - before[name]
+    g = dict(cpu_model.named_parameters())[name].grad
+    sure = (g.abs() >= 0.1 * g.abs().max()) & (g.abs() >= 1e-6)  # far above Adam's eps
+    if not bool(sure.any()):
+        raise RuntimeError(f"18c: {name} took no gradient far above Adam's eps")
+    upd_err = float((p_card[sure] - p_cpu[sure]).abs().max())
+    moved = float(p_cpu[sure].abs().median())
+    print(f"18c groups: {len(groups)}, the same LRs on the card and the CPU, block i at vit_lr "
+          f"x {decay:g}^({depth} - i) ({lr0:.4e} for block 0, {groups['rest']:.4e} for the "
+          f"cascade); {name}: card against CPU {upd_err:.3e} where the gradient's sign is "
+          f"certain, median move {moved:.4e} ({moved / lr0:.4f} of its LR) [{card}]",
+          flush=True)
+    if upd_err > STEP_UPDATE_OF_LR * lr0 or not 0.5 <= moved / lr0 <= 1.5:
+        raise RuntimeError(f"18c: {name} moved {moved} against its LR {lr0} "
+                           f"(card against CPU {upd_err})")
+    details["18c"].update(groups=groups, block0_update_err=upd_err, block0_median_move=moved)
+    details["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 (the training options): {details['phase_s']:.1f} s [{card}]", flush=True)
+    return {"rows": rows, "launches": launches, "details": details}
+
+
 def main() -> int:
     import torch
 
@@ -4100,6 +4491,8 @@ def main() -> int:
     from mvsformer_torch.models.mvsformer import build_model, random_init_
     from mvsformer_torch.ops import cuda_build, fpn_level
 
+    t_script = time.perf_counter()
+    stamps = [("start", t_script)]  # (the phase that ends here, when)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
@@ -4281,46 +4674,61 @@ def main() -> int:
     kernels = [kernel_row(name, spec, per_call[name], launches.get(name, 0))
                for name, spec in specs.items()]
 
+    stamps.append(("1-7 (build, the request, the kernels)", time.perf_counter()))
     # 8-10. Training.
     del fn, model, recorded
     torch.cuda.empty_cache()
     train = training_phase(torch, card, eval_kernels=tuple(specs))
     kernels += train.pop("kernels")
 
+    stamps.append(("8-10 (training)", time.perf_counter()))
     # 11. The DTU test pipeline.
     torch.cuda.empty_cache()
     pipeline = pipeline_phase(torch, card, specs)
 
+    stamps.append(("11 (pipeline)", time.perf_counter()))
     # 12. The training run through the CLI, its kernels at the run's shapes,
     # the crop sweep.
     torch.cuda.empty_cache()
     run = training_run_phase(torch, card, specs)
 
+    stamps.append(("12 (training run)", time.perf_counter()))
     # 13. DINOMVSNet served and trained.
     torch.cuda.empty_cache()
     dino = dino_phase(torch, card, specs)
 
+    stamps.append(("13 (DINO)", time.perf_counter()))
     # 14. The cascade's variants served and trained.
     torch.cuda.empty_cache()
     variants = variants_phase(torch, card, specs)
 
+    stamps.append(("14 (variants)", time.perf_counter()))
     # 15. The bf16 mode: both models served and TwinMVSNet trained.
     torch.cuda.empty_cache()
     bf16 = bf16_phase(torch, card, specs)
 
+    stamps.append(("15 (bf16)", time.perf_counter()))
     # 16. The process grid: data and view parallelism, the ranks on this card.
     torch.cuda.empty_cache()
     grid = parallel_phase(torch, card, specs, serial=(depth, conf))
 
+    stamps.append(("16 (the grid)", time.perf_counter()))
     # 17. The rest of the model variants (A6).
     torch.cuda.empty_cache()
     a6 = variants_a6_phase(torch, card, specs)
 
+    stamps.append(("17 (A6)", time.perf_counter()))
+    # 18. The training options no shipped config sets: focal, the clip,
+    # DINO's layer decay.
+    torch.cuda.empty_cache()
+    options = options_phase(torch, card)
+
+    stamps.append(("18 (training options)", time.perf_counter()))
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino, variants, bf16, grid, a6):
+    for phase in (run, dino, variants, bf16, grid, a6, options):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -4328,8 +4736,11 @@ def main() -> int:
     kernels = [kernel_row(name, all_specs[name], checked[name], total[name])
                for name in all_specs]
 
+    phase_s = {label: t - stamps[i][1] for i, (label, t) in enumerate(stamps[1:])}
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; the script so far {time.perf_counter() - t_script:.1f} s [{card}]", flush=True)
     details = {
-        "card": card, "device": kind, "torch": torch.__version__,
+        "card": card, "device": kind, "torch": torch.__version__, "phase_s": phase_s,
         "cuda": torch.version.cuda, "build_s": build_s, "k5_blocks_per_sm": occupancy,
         "k2_blocks_per_sm": vis_blocks, "k4_blocks_per_sm": head_blocks,
         "k6_blocks_per_sm": gsa_blocks,
@@ -4349,6 +4760,8 @@ def main() -> int:
         "bf16": dict(bf16["details"], rows=bf16["rows"], launches=bf16["launches"]),
         "parallel": dict(grid["details"], rows=grid["rows"], launches=grid["launches"]),
         "variants_a6": dict(a6["details"], rows=a6["rows"], launches=a6["launches"]),
+        "options": dict(options["details"], rows=options["rows"],
+                        launches=options["launches"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

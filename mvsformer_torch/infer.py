@@ -4,10 +4,11 @@ Port of `mvsformer_tpu/infer.py`: `make_infer_fn` (the eval forward) and
 `save_depth` (the loop over a scan list that writes `depth_est/*.pfm`,
 `confidence/*.npy`, `cams/*_cam.txt`, `images/*.jpg` and, where ground
 truth is there, `depth_metric.txt`), on one device or as one rank of a
-data x view grid (the model's layout, `parallel/mesh.py`; the JAX
+data x view x depth grid (the model's layout, `parallel/mesh.py`; the JAX
 version's mesh form): the data ranks take disjoint shares of the reference
-views, the ranks of a view group serve the same views with a block of the
-source views each, and one rank of each view group writes.
+views, the ranks of a view and depth group serve the same views (a block
+of the source views each, a slab of each stage's depth hypotheses each),
+and one rank of each such group writes.
 
 `images/*.jpg` keeps the JAX package's file name but holds PNG bytes (the
 port has no JPEG codec): the reference image is saved without loss, and a
@@ -49,8 +50,9 @@ def make_infer_fn(model, tmps=(5.0, 5.0, 5.0, 1.0)):
 
     A model built with a layout serves as one rank of it: the samples are
     this rank's (a data rank feeds its own), the forward keeps the
-    reference view and this rank's block of the source views, and every
-    rank of a view group returns the outputs of the whole request (the
+    reference view and this rank's block of the source views, regularises
+    this rank's slab of each stage's depth hypotheses, and every rank of a
+    view and depth group returns the outputs of the whole request (the
     same up to cuDNN's transposed 3D convs, which are not deterministic on
     the card).
     """
@@ -101,8 +103,9 @@ def save_depth(model, testlist, datapath, outdir, num_view=5, ndepths=192,
     `batch_size`. The data ranks exchange nothing during a forward, so the
     shares need no padding and no view is served twice (the JAX version
     pads its last batch to the data axis and drops the pad's outputs). The
-    ranks of a view group read the same views (the eval dataset draws
-    nothing at random) and the one at view index 0 writes their files.
+    ranks of a view and depth group read the same views (the eval dataset
+    draws nothing at random) and the one at view and depth index 0 writes
+    their files.
     Those ranks gather every batch's metrics to each other and sum them in
     the dataset's order, the single process's sum; rank 0 writes
     `depth_metric.txt` and the other ranks of view index 0 return the same
@@ -114,7 +117,7 @@ def save_depth(model, testlist, datapath, outdir, num_view=5, ndepths=192,
     if (num_view - 1) % layout.view:
         raise ValueError(f"num_view {num_view}: num_view - 1 source views do not split over "
                          f"{layout.view} view ranks")
-    writer = layout.view_index == 0
+    writer = layout.view_index == 0 and layout.depth_index == 0
     infer = make_infer_fn(model, tmps)
     ds = MVSEvalDataset(datapath, testlist, nviews=num_view, ndepths=ndepths,
                         interval_scale=interval_scale, max_h=max_h, max_w=max_w,

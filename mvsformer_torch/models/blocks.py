@@ -233,8 +233,15 @@ class Conv3dNormAct(nn.Module):
         self.conv = Conv3d(cin, cout, kernel, stride, _pad(kernel), bias=norm == "none")
         self.bn = make_norm(norm, cout)
 
+    def layers(self):
+        """The layers the forward runs, in order (`parallel/depth.py` runs
+        them over depth slabs)."""
+        return self.conv, self.bn, F.relu
+
     def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+        for layer in self.layers():
+            x = layer(x)
+        return x
 
 
 def _deconv3d(cin, cout, stride):
@@ -252,8 +259,8 @@ class Deconv3dNormAct(nn.Module):
         self.conv = _deconv3d(cin, cout, stride)
         self.bn = make_norm(norm, cout)
 
-    def forward(self, x):
-        return F.relu(self.bn(self.conv(x)))
+    layers = Conv3dNormAct.layers
+    forward = Conv3dNormAct.forward
 
 
 class Deconv3dSeq(nn.Sequential):

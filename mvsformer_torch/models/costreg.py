@@ -4,6 +4,11 @@ Port of `CostRegNet`, `CostRegNet3D` and `CostRegNet2D` from
 `mvsformer_tpu/models/costreg.py`, as plain `Conv3d` and `ConvTranspose3d`
 (the JAX package's depth-packed form is an exact TPU rewrite of the same
 convs). Each takes the model's `norm_type`.
+
+Each forward calls its blocks through `run(block, x)`: the block itself by
+default, or `parallel/depth.DepthSlabs.run` over a slab of the depth axis,
+where x and the skips are `parallel/depth.Slab`s (the same graph, with the
+halo exchange around each conv).
 """
 
 from __future__ import annotations
@@ -12,6 +17,10 @@ import torch.nn as nn
 
 from mvsformer_torch.models.blocks import (Conv3d, Conv3dNormAct, Deconv2dIn3dSeq,
                                            Deconv3dNormAct, Deconv3dSeq)
+
+
+def call(block, x):
+    return block(x)
 
 
 class CostRegNet(nn.Module):
@@ -32,15 +41,15 @@ class CostRegNet(nn.Module):
         self.inner = Conv3d(in_ch, c, 1) if in_ch != c else None
         self.prob = Conv3d(c, 1, 3, 1, 1, bias=False) if last_layer else None
 
-    def forward(self, x):
-        conv2 = self.conv2(self.conv1(x))
-        conv4 = self.conv4(self.conv3(conv2))
-        bott = self.conv6(self.conv5(conv4))
-        up = conv4 + self.conv7(bott)
-        up = conv2 + self.conv9(up)
-        inner = self.inner(x) if self.inner is not None else x
-        up = inner + self.conv11(up)
-        return self.prob(up) if self.prob is not None else up
+    def forward(self, x, run=call):
+        conv2 = run(self.conv2, run(self.conv1, x))
+        conv4 = run(self.conv4, run(self.conv3, conv2))
+        bott = run(self.conv6, run(self.conv5, conv4))
+        up = conv4 + run(self.conv7, bott)
+        up = conv2 + run(self.conv9, up)
+        inner = run(self.inner, x) if self.inner is not None else x
+        up = inner + run(self.conv11, up)
+        return run(self.prob, up) if self.prob is not None else up
 
 
 class CostRegNet3D(nn.Module):
@@ -62,15 +71,15 @@ class CostRegNet3D(nn.Module):
         self.inner = Conv3d(in_ch, c, 1) if in_ch != c else None
         self.prob = Conv3d(c, 1, 1)
 
-    def forward(self, x):
-        conv2 = self.conv2(self.conv1(x))
-        conv4 = self.conv4(self.conv3(conv2))
-        bott = self.conv6(self.conv5(conv4))
-        up = conv4 + self.conv7(bott)
-        up = conv2 + self.conv9(up)
-        inner = self.inner(x) if self.inner is not None else x
-        up = inner + self.conv11(up)
-        return self.prob(up)
+    def forward(self, x, run=call):
+        conv2 = run(self.conv2, run(self.conv1, x))
+        conv4 = run(self.conv4, run(self.conv3, conv2))
+        bott = run(self.conv6, run(self.conv5, conv4))
+        up = conv4 + run(self.conv7, bott)
+        up = conv2 + run(self.conv9, up)
+        inner = run(self.inner, x) if self.inner is not None else x
+        up = inner + run(self.conv11, up)
+        return run(self.prob, up)
 
 
 class CostRegNet2D(nn.Module):
@@ -95,11 +104,11 @@ class CostRegNet2D(nn.Module):
         self.conv11 = Deconv2dIn3dSeq(c * 2, c, norm=norm)
         self.prob = Conv3d(c, 1, 1)
 
-    def forward(self, x):
-        conv2 = self.conv2(self.conv1(x))
-        conv4 = self.conv4(self.conv3(conv2))
-        bott = self.conv6(self.conv5(conv4))
-        up = conv4 + self.conv7(bott)
-        up = conv2 + self.conv9(up)
-        up = x + self.conv11(up)
-        return self.prob(up)
+    def forward(self, x, run=call):
+        conv2 = run(self.conv2, run(self.conv1, x))
+        conv4 = run(self.conv4, run(self.conv3, conv2))
+        bott = run(self.conv6, run(self.conv5, conv4))
+        up = conv4 + run(self.conv7, bott)
+        up = conv2 + run(self.conv9, up)
+        up = x + run(self.conv11, up)
+        return run(self.prob, up)

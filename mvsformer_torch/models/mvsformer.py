@@ -117,17 +117,23 @@ class CascadeMVSNet(nn.Module):
 
     def use_layout(self, layout) -> None:
         """Run as one rank of `layout` (`parallel/mesh.Layout`; None runs
-        alone): training BN synchronised over its data group, and each
-        stage's view sums completed over its view group. The caller feeds
-        the model this rank's samples and views (`Layout.local_views`).
-        Parameters and buffers do not change, so a state dict moves freely
-        between the two."""
+        alone): training BN synchronised over its data group, each stage's
+        view sums completed over its view group, and in eval each stage's
+        cost regulariser run over its slab of the depth hypotheses
+        (`parallel/depth.py`). The caller feeds the model this rank's
+        samples and views (`Layout.local_views`). Parameters and buffers do
+        not change, so a state dict moves freely between the two."""
+        from mvsformer_torch.parallel.depth import DepthSlabs
+
         self.layout = layout
+        slabs = (DepthSlabs(layout.depth_group, layout.depth, layout.depth_index)
+                 if layout is not None and layout.depth > 1 else None)
         for m in self.modules():
             if isinstance(m, FoldedBatchNorm):
                 m.data_group = layout.data_group if layout else None
             elif isinstance(m, StageNet):
                 m.view_group = layout.view_group if layout else None
+                m.depth_slabs = slabs
 
     @property
     def compute_dtype(self) -> torch.dtype:

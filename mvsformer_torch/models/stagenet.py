@@ -42,6 +42,12 @@ the view group before the division (the JAX StageNet's psum over "view",
 stagenet.py:328-332), so every view rank regularises and decodes the
 same volume. The weights are each fusion's own (cnn, epipole and
 epipoleV2 alike).
+
+Under a depth split (eval only) every rank of the depth group computes the
+whole volume as above, regularises its slab of the D axis with the halo
+exchange (`parallel/depth.DepthSlabs`; the JAX package's constraint on
+`volume_mean`, stagenet.py:334-336) and gathers the logits, so the decode
+runs over all D hypotheses on every rank.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from mvsformer_torch.ops.stage_tail import depth_decode
 from mvsformer_torch.ops.vis_net import visibility_net
 from mvsformer_torch.ops.warp_corr import warp_group_corr
 from mvsformer_torch.ops.warp_corr_train import WarpCorrTrain
-from mvsformer_torch.parallel.mesh import all_sum
+from mvsformer_torch.parallel.mesh import TRAIN_DEPTH_REFUSAL, all_sum
 
 FUSION_TYPES = ("cnn", "epipole", "epipoleV2")
 
@@ -88,6 +94,7 @@ class VisibilityNet(nn.Sequential):
 
 class StageNet(nn.Module):
     view_group = None  # the ranks that split the source views (parallel/mesh.py)
+    depth_slabs = None  # this rank's part of the depth axis (parallel/depth.py)
 
     def __init__(self, ndepth: int, base_ch: int = 8, model_th: int = 8,
                  fusion_type: str = "cnn", depth_type: str = "ce", norm: str = "BN",
@@ -159,6 +166,8 @@ class StageNet(nn.Module):
         the weighted view sum, and from the cost regulariser's logits on
         the decode. The visibility CNN and the cost regulariser compute in
         the features' dtype."""
+        if self.training and self.depth_slabs is not None:
+            raise NotImplementedError(TRAIN_DEPTH_REFUSAL)
         B, C, H, W = ref_feat.shape
         G = self.base_ch
         dt = ref_feat.dtype
@@ -191,7 +200,11 @@ class StageNet(nn.Module):
                 sim = all_sum(sim, self.view_group)
         volume_mean = volume_sum / (w_sum + 1e-6)
 
-        logits = self.cost_reg(volume_mean.to(dt))[:, 0].float().contiguous()
+        if self.depth_slabs is None:
+            logits = self.cost_reg(volume_mean.to(dt))
+        else:
+            logits = self.depth_slabs.regularise(self.cost_reg, volume_mean.to(dt))
+        logits = logits[:, 0].float().contiguous()
         if self.training or self.depth_type not in ("ce", "was"):
             depth, conf = regression.decode_depth(logits, dv, self.depth_type, tmp,
                                                   training=self.training)

@@ -1,5 +1,5 @@
-"""The (data, view) process grid: one process per GPU, its groups and its
-collectives.
+"""The (data, view, depth) process grid: one process per GPU, its groups
+and its collectives.
 
 Port of `mvsformer_tpu/parallel/mesh.py` over `torch.distributed`. The
 JAX package runs one program over a ("data", "view", "depth") mesh of
@@ -15,16 +15,19 @@ device of that mesh:
   features every view rank computes; `models/stagenet.StageNet` completes
   the weighted view sum and the sum of the weights with one all-reduce
   over the view group.
-- "depth": the JAX package's depth-slab sharding of the cost volume
-  (`stagenet.py:334-336`, a GSPMD constraint whose 3D U-Net halo exchange
-  XLA inserts) has no torch counterpart short of an exchange written by
-  hand around every 3D conv of `models/costreg.py`: ROADMAP A5b. A depth
-  axis above 1 raises.
+- "depth" (serving only): the JAX package's depth-slab sharding of the
+  cost volume (`stagenet.py:334-336`, a GSPMD constraint on `volume_mean`
+  whose 3D U-Net halo exchange XLA inserts). Every depth rank computes
+  the whole volume, then regularises its slab of the depth hypotheses
+  with the halo exchange written out in `parallel/depth.py`, and gathers
+  the logits for the decode. Training over a depth axis raises (ROADMAP
+  A5b, training).
 
 Rank r sits where `make_mesh`'s `np.asarray(devices).reshape(data, view,
-depth)` puts device r: (d, v) = divmod(r, view). The JAX mesh idles the
-devices it does not use on one host; here a spare process would wait at
-its first collective for ever, so the grid must use every process.
+depth)` puts device r: (d, v, z) = np.unravel_index(r, (data, view,
+depth)). The JAX mesh idles the devices it does not use on one host; here
+a spare process would wait at its first collective for ever, so the grid
+must use every process.
 """
 
 from __future__ import annotations
@@ -40,30 +43,33 @@ import torch.distributed as dist
 from mvsformer_torch import resolve_device
 
 AXES = ("data", "view", "depth")
-DEPTH_REFUSAL = ("a depth axis above 1 (the cost volume's depth slabs) is not ported: it "
-                 "needs a halo exchange written by hand around every 3D conv of the cost "
-                 "regularisers (ROADMAP A5b)")
+TRAIN_DEPTH_REFUSAL = ("training over a depth axis above 1 is not ported: it needs gradients "
+                       "through the depth slabs' halo exchange, BN statistics over the slabs "
+                       "and gradients summed over the depth group (ROADMAP A5b, training); "
+                       "the depth axis serves only")
 
 
 def grid_shape(world: int, data: int = -1, view: int = 1, depth: int = 1) -> tuple:
     """(data, view, depth) over `world` processes; data -1 absorbs what view
-    and depth leave, as `make_mesh` does. Raises for a depth axis above 1
-    (A5b) and for a grid that does not use exactly `world` processes."""
-    if depth != 1:
-        raise NotImplementedError(DEPTH_REFUSAL)
-    if view < 1 or (data < 1 and data != -1):
+    and depth leave, as `make_mesh` does. Raises for a grid that does not
+    use exactly `world` processes."""
+    if view < 1 or depth < 1 or (data < 1 and data != -1):
         raise ValueError(f"axis sizes must be positive (data may be -1): data {data}, "
-                         f"view {view}")
+                         f"view {view}, depth {depth}")
+    groups = f"view groups of {view}" if depth == 1 else \
+        f"view x depth groups of {view} x {depth}"
     if data == -1:
-        if world % view:
-            raise ValueError(f"{world} processes do not split into view groups of {view} "
-                             f"(start a multiple of {view} processes with torchrun)")
-        data = world // view
-    if data * view != world:
-        raise ValueError(f"a data {data} x view {view} grid needs {data * view} processes, "
-                         f"and {world} are running: every process must sit on the grid "
-                         f"(start them with torchrun --nproc_per_node {data * view})")
-    return data, view, 1
+        if world % (view * depth):
+            raise ValueError(f"{world} processes do not split into {groups} (start a "
+                             f"multiple of {view * depth} processes with torchrun)")
+        data = world // (view * depth)
+    need = data * view * depth
+    if need != world:
+        grid = f"data {data} x view {view}" + (f" x depth {depth}" if depth > 1 else "")
+        raise ValueError(f"a {grid} grid needs {need} processes, and {world} are running: "
+                         f"every process must sit on the grid (start them with torchrun "
+                         f"--nproc_per_node {need})")
+    return data, view, depth
 
 
 def grid_position(rank: int, data: int, view: int, depth: int = 1) -> tuple:
@@ -74,34 +80,42 @@ def grid_position(rank: int, data: int, view: int, depth: int = 1) -> tuple:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Layout:
-    """This process's place on a data x view grid and its two groups:
-    `data_group` the ranks at its view index (they split the batch: SyncBN,
-    and the gradients' mean), `view_group` the ranks at its data index
-    (they split one sample's source views). A group is None where its axis
-    has size 1. `Layout()` is one process."""
+    """This process's place on a data x view x depth grid and its groups:
+    `data_group` the ranks at its (view, depth) index (they split the
+    batch: SyncBN, and the gradients' mean), `view_group` the ranks at its
+    (data, depth) index (they split one sample's source views),
+    `depth_group` the ranks at its (data, view) index (they split the cost
+    volume's depth hypotheses). A group is None where its axis has size 1.
+    `Layout()` is one process."""
 
     data: int = 1
     view: int = 1
     rank: int = 0
     data_group: Any = None
     view_group: Any = None
+    depth: int = 1
+    depth_group: Any = None
 
     @property
     def world(self) -> int:
-        return self.data * self.view
+        return self.data * self.view * self.depth
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.view
+        return self.rank // (self.view * self.depth)
 
     @property
     def view_index(self) -> int:
-        return self.rank % self.view
+        return self.rank // self.depth % self.view
+
+    @property
+    def depth_index(self) -> int:
+        return self.rank % self.depth
 
     @property
     def view_lead(self) -> int:
         """The global rank at view index 0 of this rank's view group."""
-        return self.data_index * self.view
+        return (self.data_index * self.view) * self.depth + self.depth_index
 
     def local_views(self, x):
         """x [B, V, ...] -> [B, 1 + (V - 1) / view, ...]: the reference view
@@ -124,23 +138,31 @@ class Layout:
 
 
 def make_layout(data: int = -1, view: int = 1, depth: int = 1) -> Layout:
-    """This process's `Layout` on a data x view grid over the running
-    process group (one process without one). Every process calls it, and
-    each builds one group per data index and one per view index, in the
-    same order."""
+    """This process's `Layout` on a data x view x depth grid over the
+    running process group (one process without one). Every process calls
+    it, and each builds one group per (view, depth), per (data, depth) and
+    per (data, view) index, in the same order."""
     initialised = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialised else 1
     rank = dist.get_rank() if initialised else 0
-    data, view, _ = grid_shape(world, data, view, depth)
+    data, view, depth = grid_shape(world, data, view, depth)
     if world == 1:
         return Layout()
-    ranks = np.arange(world).reshape(data, view)
-    data_groups = [dist.new_group(ranks[:, v].tolist()) if data > 1 else None
-                   for v in range(view)]
-    view_groups = [dist.new_group(ranks[d].tolist()) if view > 1 else None
-                   for d in range(data)]
-    d, v, _ = grid_position(rank, data, view)
-    return Layout(data, view, rank, data_groups[v], view_groups[d])
+    ranks = np.arange(world).reshape(data, view, depth)
+
+    def groups(size, lines):
+        return {key: dist.new_group(line.tolist()) if size > 1 else None
+                for key, line in lines}
+
+    data_groups = groups(data, (((v, z), ranks[:, v, z])
+                                for v in range(view) for z in range(depth)))
+    view_groups = groups(view, (((d, z), ranks[d, :, z])
+                                for d in range(data) for z in range(depth)))
+    depth_groups = groups(depth, (((d, v), ranks[d, v, :])
+                                  for d in range(data) for v in range(view)))
+    d, v, z = grid_position(rank, data, view, depth)
+    return Layout(data, view, rank, data_groups[v, z], view_groups[d, z], depth,
+                  depth_groups[d, v])
 
 
 def init_distributed(backend=None, device=None, init_method="env://") -> torch.device:
@@ -209,28 +231,30 @@ def mean_(tensors, group=None) -> None:
             offset += t.numel()
 
 
-def start(args):
+def start(args, train: bool = False):
     """The CLIs' process setup -> (device, Layout), from their
     `--device`, `--data_parallel`, `--view_parallel`, `--depth_parallel`,
     `--dist_backend`, `--dist_url` and the train CLI's `--multi_host` (the
     test CLI serves on one node). Under torchrun (WORLD_SIZE set, even to
     1) every process joins the process group and the first collective runs
     on the backend chosen; without it the grid is one process, and asking
-    for more raises."""
+    for more raises. `train`: the train CLI's setup, which refuses a depth
+    axis (ROADMAP A5b, training)."""
     multi_host = getattr(args, "multi_host", False)
-    if args.depth_parallel != 1:
-        raise NotImplementedError(DEPTH_REFUSAL)
+    if train and args.depth_parallel != 1:
+        raise NotImplementedError(TRAIN_DEPTH_REFUSAL)
+    grid = (args.data_parallel, args.view_parallel, args.depth_parallel)
     if "WORLD_SIZE" not in os.environ:
         if multi_host:
             raise RuntimeError("--multi_host: start the processes with torchrun, whose "
                                "variables name the nodes")
-        return resolve_device(args.device), make_layout(args.data_parallel, args.view_parallel)
+        return resolve_device(args.device), make_layout(*grid)
     world = int(os.environ["WORLD_SIZE"])
     if int(os.environ.get("LOCAL_WORLD_SIZE", world)) != world and not multi_host:
         raise ValueError(f"the {world} processes span several nodes: pass --multi_host "
                          f"(the train CLI; the test CLI serves on one node)")
     device = init_distributed(args.dist_backend, args.device, args.dist_url)
-    layout = make_layout(args.data_parallel, args.view_parallel)
+    layout = make_layout(*grid)
     dist.all_reduce(torch.ones(1, device=device))  # every rank is up
     return device, layout
 

@@ -15,13 +15,15 @@ computes in fp32 throughout.
 
 Several GPUs, one process each, under torchrun: `--data_parallel` ranks
 take disjoint shares of the reference views (-1, the default here, absorbs
-the processes `--view_parallel` leaves), and the `--view_parallel` ranks of
-a view group serve the same views with a block of the source views each
-(`num_view - 1` must divide; a `batch_size` that is not a multiple of the
-data size becomes the data size, as in the JAX CLI); rank 0 fuses:
+the processes `--view_parallel` and `--depth_parallel` leave), the
+`--view_parallel` ranks of a view group serve the same views with a block
+of the source views each (`num_view - 1` must divide; a `batch_size` that
+is not a multiple of the data size becomes the data size, as in the JAX
+CLI), and the `--depth_parallel` ranks of a depth group regularise a slab
+of each stage's depth hypotheses each (`parallel/depth.py`); rank 0 fuses:
 
-    torchrun --nproc_per_node 2 -m mvsformer_torch.test ... --view_parallel 2 \
-        --dist_backend nccl
+    torchrun --nproc_per_node 4 -m mvsformer_torch.test ... --view_parallel 2 \
+        --depth_parallel 2 --dist_backend nccl
 
 Departures from the JAX CLI:
 - `--device` (default `cuda`) replaces `--platform`; under torchrun `cuda`
@@ -29,15 +31,15 @@ Departures from the JAX CLI:
   that card (gloo only).
 - `--data_parallel` defaults to -1 (the JAX CLI's 1 idles the devices it
   does not use; a spare process would wait for ever).
-- `--depth_parallel` above 1 raises: the cost volume's depth slabs are not
-  ported (ROADMAP A5b).
 - `--dist_backend` (nccl by default on CUDA, gloo on the CPU; nccl needs
   one card per rank) and `--dist_url` (default env://) start the process
   group.
 - Weights come from `<ckpt_dir>/<which_ckpt>.pth`, a checkpoint that
   `python -m mvsformer_torch.train` wrote, or from `--torch_ckpt` (a
-  reference `.pth`); the JAX package's orbax checkpoint directories are not
-  read (ROADMAP A4).
+  reference `.pth`). A JAX run's orbax checkpoint directories are read
+  after `python tools/orbax_to_torch.py <run_dir> <out_dir>` has converted
+  them where JAX and orbax are installed (the card's machine has neither);
+  `--ckpt_dir <out_dir>` then serves them.
 - The scans' images must be PNG, PPM or PGM (under their `.jpg` names is
   fine): the port decodes no JPEG (ROADMAP A3), and saves `images/*.jpg`
   as PNG bytes.
@@ -53,11 +55,10 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="MVSFormer testing on PyTorch and CUDA",
         epilog="Departures from the JAX package's test.py: --device replaces --platform; "
-               "weights come from "
-               "<ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (orbax restore: ROADMAP A4); "
-               "--data_parallel defaults to -1; --depth_parallel above 1 (ROADMAP A5b) is "
-               "not ported; --dist_backend and --dist_url start the process group under "
-               "torchrun; input images must be PNG, "
+               "weights come from <ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (a JAX run's "
+               "orbax directories after python tools/orbax_to_torch.py <run_dir> <out_dir>); "
+               "--data_parallel defaults to -1; --dist_backend and --dist_url start the "
+               "process group under torchrun; input images must be PNG, "
                "PPM or PGM (no JPEG decoder: ROADMAP A3), and images/*.jpg is written as PNG.")
     parser.add_argument("--dataset", default="dtu", choices=["dtu", "tt"])
     parser.add_argument("--testpath", required=True)
@@ -113,7 +114,8 @@ def parse_args(argv=None):
     parser.add_argument("--view_parallel", type=int, default=1,
                         help="view ranks per request; must divide num_view - 1")
     parser.add_argument("--depth_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5b)")
+                        help="depth ranks per request, each regularising a slab of every "
+                             "stage's depth hypotheses")
     parser.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
                         help="process group backend (default nccl on CUDA, gloo on the CPU); "
                              "nccl needs one card per rank")
@@ -136,6 +138,7 @@ def main(argv=None):
     from mvsformer_torch.infer import save_depth
     from mvsformer_torch.models.mvsformer import build_model
     from mvsformer_torch.parallel.mesh import start, stop
+    from mvsformer_torch.train.checkpoint import ORBAX_HINT
     from mvsformer_torch.utils.convert_weights import load_reference_checkpoint
 
     device, layout = start(args)
@@ -165,9 +168,8 @@ def main(argv=None):
         ckpt = args.torch_ckpt or os.path.join(args.ckpt_dir, args.which_ckpt + ".pth")
         if not os.path.isfile(ckpt):
             if os.path.isdir(os.path.join(args.ckpt_dir, args.which_ckpt)):
-                raise NotImplementedError(
-                    f"{args.which_ckpt} in {args.ckpt_dir} is a JAX orbax checkpoint directory, "
-                    "which the port does not read (ROADMAP A4); pass a .pth")
+                raise ValueError(ORBAX_HINT.format(
+                    what=f"{args.which_ckpt} in {args.ckpt_dir}", run_dir=args.ckpt_dir))
             raise FileNotFoundError(f"no checkpoint {ckpt}")
         load_reference_checkpoint(ckpt, model)
         tmps = [float(t) for t in args.tmps.split(",")]

@@ -37,8 +37,12 @@ Departures from the JAX CLI:
 - `--device` (default `cuda`) replaces `--platform`; under torchrun `cuda`
   means `cuda:LOCAL_RANK`, and a device with an index puts every rank on
   that card (gloo only).
-- `--depth_parallel` above 1 raises: the cost volume's depth slabs are not
-  ported (ROADMAP A5b).
+- `--depth_parallel` above 1 raises: the depth axis serves only (the test
+  CLI); training over it is ROADMAP A5b's training half.
+- `--resume` and `--finetune` read `.pth` checkpoints: a JAX run's orbax
+  directories are converted first by `python tools/orbax_to_torch.py
+  <run_dir> <out_dir>` (where JAX and orbax are installed), which writes a
+  run dir these flags read.
 - `--dist_backend` and `--dist_url` (default env://, torchrun's
   variables) choose the process group's backend and rendezvous.
 - No TensorBoard writer (the card's machine has no tensorboard package):
@@ -58,7 +62,7 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(
         description="MVSFormer training on PyTorch and CUDA",
         epilog="Departures from the JAX package's train.py: --device replaces --platform; "
-               "--depth_parallel above 1 is not ported (ROADMAP A5b); --dist_backend and "
+               "--depth_parallel above 1 serves only (ROADMAP A5b, training); --dist_backend and "
                "--dist_url start the process group under torchrun; no TensorBoard writer.")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--data_path", type=str, default=None)
@@ -90,7 +94,8 @@ def parse_args(argv=None):
     parser.add_argument("--view_parallel", type=int, default=1,
                         help="view ranks per sample; must divide nviews - 1")
     parser.add_argument("--depth_parallel", type=int, default=1,
-                        help="above 1: not ported (ROADMAP A5b)")
+                        help="above 1: not ported for training (ROADMAP A5b, training); "
+                             "the test CLI serves over it")
     parser.add_argument("--multi_host", action="store_true",
                         help="the torchrun processes span several nodes")
     parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
@@ -126,7 +131,7 @@ def main(argv=None):
     from mvsformer_torch.train.trainer import Trainer
     from mvsformer_torch.utils.logging import setup_logging
 
-    device, layout = start(args)
+    device, layout = start(args, train=True)
     overrides = {}
     if args.lr is not None:
         overrides["optimizer.lr"] = args.lr

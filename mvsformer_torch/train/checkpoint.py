@@ -11,8 +11,10 @@ reads its model part. Beside it the JSON sidecar `<name>.meta.json` holds
 the JAX package's keys (epoch, monitor_metric, monitor_value, monitor_best,
 global_step, and batch_idx for `model_step`). Both files are written to a
 temporary name and moved into place with `os.replace`, so a run stopped
-mid-write leaves the previous checkpoint whole. The JAX package's orbax
-directories are not read (ROADMAP A4).
+mid-write leaves the previous checkpoint whole. A JAX run's orbax
+directories (`model_best/`, ...) are read once `tools/orbax_to_torch.py`
+has converted them into this layout, where JAX and orbax are installed;
+finding only those directories raises, naming that command (`ORBAX_HINT`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ import os
 import time
 
 import torch
+
+ORBAX_HINT = ("{what} is a JAX orbax checkpoint directory, which the port reads once "
+              "converted: run `python tools/orbax_to_torch.py {run_dir} <out_dir>` where JAX "
+              "and orbax are installed, then read <out_dir> instead")
 
 
 class CheckpointManager:
@@ -85,6 +91,8 @@ class CheckpointManager:
     def restore(self, name: str):
         """-> (the saved dict, loaded to the CPU; its sidecar meta). The
         meta's monitor_best becomes this manager's best."""
+        if not self.has(name):
+            self.refuse_orbax([name])
         state = torch.load(self.path(name), map_location="cpu", weights_only=False)
         meta = self.peek_meta(name)
         self.best = meta.get("monitor_best", self.best)
@@ -92,6 +100,14 @@ class CheckpointManager:
 
     def has(self, name: str) -> bool:
         return os.path.isfile(self.path(name))
+
+    def refuse_orbax(self, names) -> None:
+        """Raise, naming the converter, where one of `names` is an orbax
+        directory (a JAX run's checkpoint) and not a `.pth`."""
+        for name in names:
+            if os.path.isdir(os.path.join(self.ckpt_dir, name)):
+                raise ValueError(ORBAX_HINT.format(what=f"{name} in {self.ckpt_dir}",
+                                                   run_dir=self.ckpt_dir))
 
     def peek_meta(self, name: str) -> dict:
         """A checkpoint's sidecar meta, without reading its tensors ({} if none)."""

@@ -205,6 +205,10 @@ class Trainer:
         on, as the JAX trainer's restored optax counts do (a resumed run
         with more epochs has a longer schedule than the run that saved)."""
         state, meta = self.ckpt.restore(name)
+        if "optimizer" not in state:
+            raise ValueError(f"{self.ckpt.path(name)} holds no optimizer state (a params-only "
+                             f"export): start a new run from it with --finetune and "
+                             f"--no_restore_opt")
         self.model.load_state_dict(state["state_dict"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.global_step = int(meta.get("global_step", self.global_step))
@@ -224,6 +228,7 @@ class Trainer:
                         or meta.get("global_step", 0) > best_meta.get("global_step", 0)):
                     best_name, best_meta = name, meta
         if best_name is None:
+            self.ckpt.refuse_orbax(("model_last", "model_step"))
             return None
         meta = self.restore(best_name)
         if best_name == "model_step":
@@ -250,6 +255,10 @@ class Trainer:
         self.model.load_state_dict(state["state_dict"])
         saved_step = int(meta.get("global_step", 0))
         if restore_opt:
+            if "optimizer" not in state:
+                raise ValueError(f"{mgr.path(name)} holds no optimizer state (a params-only "
+                                 f"export): finetune with restore_opt=False "
+                                 f"(--no_restore_opt)")
             self.optimizer.load_state_dict(state["optimizer"])
         else:
             self.step = TrainStep(self.model, self.cfg, steps_per_epoch=len(self.train_loader),

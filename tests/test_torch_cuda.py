@@ -829,3 +829,83 @@ def test_view_split_on_one_card_matches_the_serial_request(dev, tmp_path):
                                                        "depth_decode")), r["launches"]
     assert float((ranks[0]["depth"] - ranks[1]["depth"]).abs().max()) <= 1e-2
     assert float((ranks[0]["conf"] - ranks[1]["conf"]).abs().max()) <= 1e-4
+
+
+def conv_op_errors(model, step, batch):
+    """Run `step(batch)` (a step whose clip does not bind) with every
+    Conv3d and ConvTranspose3d of the cost regularisers recording its input
+    and output gradient; returns {name:
+    max |the card's weight gradient - float64's from the card's own inputs
+    and output gradients| / max |float64's|}: the error of the op alone."""
+    import torch.nn.functional as F
+
+    seen, handles = {}, []
+    for name, m in model.named_modules():
+        if "cost_reg" in name and isinstance(m, (torch.nn.Conv3d, torch.nn.ConvTranspose3d)):
+            rec = seen[name] = {"x": [], "dy": []}
+            handles.append(m.register_forward_hook(
+                lambda mod, inp, out, rec=rec: rec["x"].append(inp[0].detach().cpu())))
+            handles.append(m.register_full_backward_hook(
+                lambda mod, gin, gout, rec=rec: rec["dy"].append(gout[0].detach().cpu())))
+    try:
+        step(batch)
+    finally:
+        for h in handles:
+            h.remove()
+    errs = {}
+    for name, rec in seen.items():
+        m = model.get_submodule(name)
+        w = m.weight.detach().cpu().double().requires_grad_()
+        total = torch.zeros_like(w)
+        for x, dy in zip(rec["x"], rec["dy"]):
+            if isinstance(m, torch.nn.ConvTranspose3d):
+                y = F.conv_transpose3d(x.double(), w, None, m.stride, m.padding,
+                                       m.output_padding, m.groups, m.dilation)
+            else:
+                y = F.conv3d(x.double(), w, None, m.stride, m.padding, m.dilation, m.groups)
+            total += torch.autograd.grad(y, w, dy.double())[0]
+        total /= len(rec["x"])  # the step averages its micro-batches' gradients
+        scale = float(total.abs().max())
+        if scale > 0:
+            errs[name] = float((m.weight.grad.cpu().double() - total).abs().max()) / scale
+    return errs
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5, 6, 7])
+def test_layer_decay_step_holds_phase_10s_bounds_over_seeds(dev, seed):
+    """chip_smoke.py's 18c (DINO, layer decay, the ViT trained) from other
+    weights: the card's step under deterministic cuDNN against the CPU's
+    within phase 10's bounds, as 18c holds it. Beside it, printed (`-s`):
+    the card's step with cuDNN's default algorithms and with cuDNN off
+    (PyTorch's own CUDA convolutions), each against the same CPU step and
+    a float64 CPU step (whether the gap moves with the algorithms, and
+    which fp32 step it comes from); and, for each 3D conv of the cost
+    regularisers, the card's weight gradient against float64's from the
+    card's own inputs and output gradients (the op's error alone)."""
+    import contextlib
+
+    import chip_smoke
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.train.step import TrainStep
+
+    modes = {"cuDNN's default algorithms": lambda t: contextlib.nullcontext(),
+             "cuDNN off": lambda t: t.backends.cudnn.flags(enabled=False),
+             "deterministic cuDNN": chip_smoke.deterministic_math}
+    cfg = chip_smoke.layer_decay_config()
+    for mode, card_math in modes.items():
+        *_, details = chip_smoke.options_step_pair(
+            torch, f"18c seed {seed}, {mode},", cfg, seed, torch.cuda.get_device_name(0),
+            "cuda", card_math=card_math, arbiter=True)
+        model = random_init_(build_model(cfg.arch, device="cpu", train=True),
+                             torch.Generator().manual_seed(seed)).to(dev)
+        batch = chip_smoke.synthetic_batch(torch, *chip_smoke.STEP_SHAPE, device="cuda",
+                                           with_gt=True)
+        with card_math(torch):
+            errs = conv_op_errors(model, TrainStep(model, cfg, seed=0), batch)
+        worst = max(errs, key=errs.get)
+        print(f"18c seed {seed}, {mode}: the cost regularisers' 3D convs' weight gradients "
+              f"on the card against float64's from the card's own inputs: worst "
+              f"{errs[worst]:.3e} of scale at {worst}; "
+              + ", ".join(f"{n} {e:.3e}" for n, e in sorted(errs.items()) if "conv9" in n
+                          or "conv7" in n))
+    assert details["ok"], details["errors"]

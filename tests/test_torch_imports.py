@@ -1,7 +1,8 @@
 """Guard tests for the PyTorch port's boundaries.
 
 `mvsformer_torch` imports torch, never JAX, flax or the JAX package (not
-even its JAX-free modules), nor Triton, nor an image library (OpenCV, PIL,
+even its JAX-free modules) nor `tools/` (the orbax converter runs where JAX
+is), nor Triton, nor an image library (OpenCV, PIL,
 torchvision: the machine with the card has none, so the port keeps its own
 codecs), nor orbax or TensorBoard (its checkpoints are `torch.save` files,
 its scalars go to the log and a JSON-lines file), and neither does
@@ -30,7 +31,7 @@ from mvsformer_torch.ops.stage_tail import depth_decode
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvsformer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mvsformer_tpu", "tools")
 IMAGE_LIBRARIES = ("cv2", "PIL", "torchvision")
 # The test pipeline's modules (save_depth, the eval data, fusion, the CLI),
 # each beside its JAX counterpart's name.
@@ -43,8 +44,8 @@ TRAINING_MODULES = ("config", "data.dtu", "data.blended", "data.loader", "train.
                     "train.checkpoint", "train.optim", "train.step", "train.trainer",
                     "train.__main__", "utils.logging")
 TRAINING_LIBRARIES = ("orbax", "tensorboardX", "tensorboard", "torch.utils.tensorboard")
-# The process grid's modules (data and view parallelism, the dry run).
-PARALLEL_MODULES = ("parallel.mesh", "parallel.dryrun")
+# The process grid's modules (data, view and depth parallelism, the dry run).
+PARALLEL_MODULES = ("parallel.mesh", "parallel.depth", "parallel.dryrun")
 
 
 def port_files():
@@ -184,13 +185,20 @@ def test_forward_runs_with_tf32_off_and_restores_the_flags(monkeypatch, raises):
 
 def test_build_model_rejects_what_later_slices_port():
     """Every model configuration builds since A6 (multi_scale among them);
-    what a later slice ports, the depth axis of the process grid, still
-    raises, naming ROADMAP A5b."""
-    from mvsformer_torch.parallel import mesh
+    what a later slice ports, training over the depth axis of the process
+    grid, still raises, naming ROADMAP A5b: a training forward of a model
+    laid out over depth slabs."""
+    from mvsformer_torch.models.stagenet import StageNet
+    from mvsformer_torch.parallel.depth import DepthSlabs
 
     assert build_model(ModelConfig(multi_scale=True), device="cpu").cfg.multi_scale
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A5b"):
-        mesh.make_layout(depth=2)
+    stage = StageNet(2).train()
+    stage.depth_slabs = DepthSlabs(None, 2, 0)
+    B, C, H, W = 1, 8, 4, 4
+    proj = torch.eye(4).expand(B, 2, 4, 4).clone()
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A5b, training"):
+        stage(torch.randn(B, C, H, W), torch.randn(B, 1, C, H, W), proj, proj[:, None],
+              torch.linspace(1.0, 2.0, 2).view(1, 2, 1, 1).expand(B, 2, H, W), 1.0)
 
 
 def test_cpu_tensors_take_the_plain_version_and_do_not_count():

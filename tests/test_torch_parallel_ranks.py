@@ -8,10 +8,10 @@ TCP port to collide across xdist workers) and a timeout; each rank writes
 its result to `rank<r>.pt`, which the test compares.
 
 The tests here need no JAX:
-- the grid: rank r sits at `divmod(r, view)`, the refusals (a depth axis
-  above 1 naming A5b, a grid that does not use every process, a view split
-  of the source views that does not divide), and the differentiable sum's
-  backward;
+- the grid: rank r sits at `np.unravel_index(r, (data, view, depth))`,
+  the refusals (training over a depth axis above 1 naming A5b, a grid
+  that does not use every process, a view split of the source views that
+  does not divide), and the differentiable sum's backward;
 - `python -m mvsformer_torch.parallel.dryrun --world 4`;
 - the step at data 2 with SyncBN, at view 2 (each of the three fusions),
   at data 2 x view 2 and DINOMVSNet's `fix` step at data 2 against the
@@ -55,16 +55,17 @@ DINO_VIT = dict(twin=False, vit_arch="vit_small", vit_ch=384, out_ch=64, att_fus
 
 # ------------------------------------------------------------------ the ranks
 
-def run_ranks(tmp_path, world, job, timeout=RANK_TIMEOUT_S, env=None):
+def run_ranks(tmp_path, world, job, timeout=RANK_TIMEOUT_S, env=None, script=__file__):
     """Run `job` (a JSON-able dict naming its `kind`) on `world` gloo ranks
-    and return each rank's result. A rank that fails, or a run that passes
-    `timeout`, fails the test with every rank's output."""
+    (`python <script> JOB`, this file's `rank_main` by default) and return
+    each rank's result. A rank that fails, or a run that passes `timeout`,
+    fails the test with every rank's output."""
     job = dict(job, store=str(tmp_path / "store"), out=str(tmp_path), world=world)
     path = tmp_path / f"job-{job['kind']}.json"
     path.write_text(json.dumps(job))
     logs = [open(tmp_path / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(path)], cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT,
+        [sys.executable, script, str(path)], cwd=REPO, stdout=logs[r], stderr=subprocess.STDOUT,
         env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                  OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([REPO, HERE]), **(env or {})))
         for r in range(world)]
@@ -234,7 +235,7 @@ def rank_main(path):
     else:
         dist.init_process_group("gloo", init_method="file://" + job["store"],
                                 world_size=job["world"], rank=rank)
-        layout = mesh.make_layout(job["data"], job["view"])
+        layout = mesh.make_layout(job["data"], job["view"], job.get("depth", 1))
         with torch.backends.mkldnn.flags(enabled=job.get("mkldnn", True)):
             result = JOBS[job["kind"]](job, layout)
         dist.destroy_process_group()
@@ -251,6 +252,15 @@ def test_grid_position_is_the_row_major_reshape(data, view):
         d, v, z = mesh.grid_position(r, data, view)
         assert grid[d, v, z] == r and (d, v) == divmod(r, view)
     assert mesh.grid_shape(world, -1, view) == (data, view, 1)
+    for depth in (2, 3):  # the depth axis is the fastest, as make_mesh reshapes
+        grid = np.arange(world * depth).reshape(data, view, depth)
+        assert mesh.grid_shape(world * depth, -1, view, depth) == (data, view, depth)
+        for r in range(world * depth):
+            layout = mesh.Layout(data=data, view=view, depth=depth, rank=r)
+            assert mesh.grid_position(r, data, view, depth) == (
+                layout.data_index, layout.view_index, layout.depth_index)
+            assert grid[layout.data_index, layout.view_index, layout.depth_index] == r
+            assert grid[layout.data_index, 0, layout.depth_index] == layout.view_lead
 
 
 @pytest.mark.parametrize("world,data,view,match", [
@@ -265,10 +275,21 @@ def test_a_grid_that_does_not_use_every_process_raises(world, data, view, match)
 
 
 def test_a_depth_axis_raises_naming_a5b():
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
-        mesh.grid_shape(8, 2, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+    """The depth axis serves (a grid of 8 lays out 2 x 2 x 2; one process
+    is no grid of two), and the train CLI's setup refuses it, naming A5b's
+    training half."""
+    from argparse import Namespace
+
+    assert mesh.grid_shape(8, 2, 2, 2) == (2, 2, 2)
+    assert mesh.grid_shape(8, -1, 1, 4) == (2, 1, 4)
+    with pytest.raises(ValueError, match="view x depth groups of 3 x 2"):
+        mesh.grid_shape(8, -1, 3, 2)
+    with pytest.raises(ValueError, match="torchrun"):
         mesh.make_layout(depth=2)
+    args = Namespace(device="cpu", data_parallel=-1, view_parallel=1, depth_parallel=2,
+                     multi_host=False, dist_backend=None, dist_url="env://")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5b, training"):
+        mesh.start(args, train=True)
 
 
 def test_one_process_lays_out_alone():
@@ -299,8 +320,10 @@ def test_the_cli_start_refuses_what_it_cannot_run(monkeypatch):
                      multi_host=False, dist_backend=None, dist_url="env://")
     device, layout = mesh.start(args)
     assert device.type == "cpu" and layout.world == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+    with pytest.raises(ValueError, match="torchrun"):  # serving: one process is no grid
         mesh.start(Namespace(**dict(vars(args), depth_parallel=2)))
+    with pytest.raises(NotImplementedError, match="ROADMAP A5b"):
+        mesh.start(Namespace(**dict(vars(args), depth_parallel=2)), train=True)
     with pytest.raises(ValueError, match="torchrun"):
         mesh.start(Namespace(**dict(vars(args), data_parallel=2)))
     with pytest.raises(RuntimeError, match="torchrun"):

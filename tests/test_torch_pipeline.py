@@ -394,12 +394,13 @@ def test_cli_serves_in_bf16(tree, ckpt, tmp_path, argv):
 @pytest.mark.parametrize("argv,error,match", [
     (["--data_parallel", "2"], ValueError, "torchrun"),
     (["--view_parallel", "2"], ValueError, "torchrun"),
-    (["--which_ckpt", "orbax_best"], NotImplementedError, "ROADMAP A4"),
-    (["--depth_parallel", "2"], NotImplementedError, "ROADMAP A5b"),
+    (["--which_ckpt", "orbax_best"], ValueError, r"python tools/orbax_to_torch\.py"),
+    (["--depth_parallel", "2"], ValueError, "torchrun"),
 ], ids=["argv0-ROADMAP A5", "argv1-ROADMAP A5", "argv2-ROADMAP A4", "argv3-ROADMAP A5b"])
 def test_cli_refuses_what_is_not_ported(tree, ckpt, tmp_path, argv, error, match):
-    """Orbax checkpoints (A4) and the depth axis (A5b) are not ported; the
-    data and view axes are (A5), but one process cannot be a grid of two."""
+    """An orbax checkpoint directory is read once tools/orbax_to_torch.py has
+    converted it (A4): the CLI names that command. The data, view and depth
+    axes serve (A5, A5b), but one process cannot be a grid of two."""
     os.makedirs(os.path.join(ckpt["run"], "orbax_best"), exist_ok=True)  # a JAX checkpoint dir
     with pytest.raises(error, match=match):
         port_cli.main(["--testpath", tree["data"], "--ckpt_dir", ckpt["run"], "--outdir",
@@ -428,8 +429,8 @@ def test_cli_help_states_the_departures(capsys):
         port_cli.main(["--help"])
     text = " ".join(capsys.readouterr().out.split())
     for needle in ("--device replaces --platform", "bf16 (the default)",
-                   "orbax restore: ROADMAP A4",
-                   "ROADMAP A5", "no JPEG decoder", "written as PNG"):
+                   "python tools/orbax_to_torch.py <run_dir> <out_dir>",
+                   "--data_parallel defaults to -1", "no JPEG decoder", "written as PNG"):
         assert needle in text, needle
 
 

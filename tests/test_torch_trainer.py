@@ -21,8 +21,9 @@ Port only:
   --which_ckpt model_best` evaluates what it saved, equal to
   `make_infer_fn` of the restored model (on `chip_smoke.write_dtu_scan`'s
   PNG scan);
-- what the CLI does not port raises, naming the ROADMAP item (the depth
-  axis, A5b), a grid the processes cannot fill raises naming torchrun, and
+- what the CLI does not port raises, naming the ROADMAP item (training
+  over the depth axis, A5b), a grid the processes cannot fill raises
+  naming torchrun, and
   the default device is `cuda`.
 """
 
@@ -310,7 +311,8 @@ def test_train_cli_trains_in_bf16(dtu_root, tmp_path, argv):
     (["--multi_host"], RuntimeError, "torchrun"),
 ], ids=["argv0-ROADMAP A5", "argv1-ROADMAP A5", "argv2-ROADMAP A5", "argv3-ROADMAP A5"])
 def test_train_cli_refuses_what_is_not_ported(argv, error, match):
-    """`--depth_parallel` above 1 is not ported (A5b). The data and view
+    """`--depth_parallel` above 1 serves only: training over it is not
+    ported (A5b, training). The data and view
     axes are (A5), but one process cannot be a grid of two, and
     `--multi_host` needs torchrun's variables: both raise, naming torchrun,
     before the config is read."""
