@@ -95,7 +95,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    and gipuma on the card (kept share of the interior, distance from the
    plane; fusion ms per view) and views 0 and 3 on the CPU as well (mask
    agreement, points), then
-   the random weights' depth maps into a PLY as a smoke run.
+   the random weights' depth maps into a PLY as a smoke run. 11h, JPEG:
+   build the host decoder (`mvsformer_torch/csrc/host/jpeg_decode.cpp`,
+   the host C++ compiler; its seconds printed) and decode every committed
+   stream of tests/fixtures/jpeg/ in colour and in grey, each bit-equal to
+   its committed cv2 decode (sha256, and PNGs for the small ones); print
+   the median ms of 5 reads of the 1600x1200 stream (view 0 of this scan,
+   4:2:0, quality 90) beside 11a's PNG decode of the same pixels, and
+   decode it from 4 threads at once, each the serial result.
 12. The training run as a user runs it: `python -m mvsformer_torch.train
    --config configs/config_mvsformer.json` (as it ships: the default
    ModelConfig, batch 8, 5 views, 192 depths, the 25 crop sizes and the
@@ -110,15 +117,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    batches, B=8 and B=5, 512x640). Then `--resume` with 2 epochs (2 more
    steps; the resumed epoch does not validate, epoch 1's validation runs
    the same code), and beside it `python -m mvsformer_torch.test
-   --which_ckpt model_best` (bf16, its default) on phase 11's eval scan.
+   --which_ckpt model_best` (bf16, its default) on the committed
+   DTU-layout JPEG scan (tests/fixtures/jpeg/scan: 6 views of the plane at
+   400x300, 4:2:0, quality 90, encoded by cv2; its cams, pair and
+   Depths_raw from `write_dtu_scan` at that size and seed).
    Each step must show a finite loss, the barrels' crop size, K7/K8 4
    launches a micro-batch and K1-K6 none; the validation K1-K6 at their
    per-request counts a batch;
    model_best, model_last, model_step and their sidecars must be written;
    the resume must start at epoch 2, global step 2, at LR schedule(2);
    model_last restored in this process must equal the file bit for bit;
-   the test CLI's view 0 must match `make_infer_fn` of the restored model
-   in bf16 within the card-to-CPU bounds. Prints per step its ms, crop, micro-
+   the eval dataset's samples of the JPEG scan must equal those of its PNG
+   twin (the committed cv2 decodes, written as PNG) bit for bit, the test
+   CLI must launch K1-K6 at 6 x their per-request counts, and its view 0
+   must match `make_infer_fn` of the restored model in bf16 within the
+   card-to-CPU bounds. Prints per step its ms, crop, micro-
    batches and loader wait; load ms per sample, validation ms per batch,
    checkpoint ms and bytes, peak memory, the profile window's idle share.
    Then K1-K6 are held against their plain versions on one validation batch
@@ -137,9 +150,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    outputs as phase 5 does; hold K1-K5 to their plain versions at every
    launch of one request (the same bits in 5 runs); run the __graft_entry__
    request on the card and on the CPU (phase 7's bounds); run `python -m
-   mvsformer_torch.test --dtype fp32` with the -p config on phase 11's eval
-   scan from a DINOMVSNet checkpoint in the reference's layout, view 0
-   against `make_infer_fn` within the card-to-CPU bounds. Then train at phase 8's
+   mvsformer_torch.test --dtype fp32 --dataset tt` with the -p config on
+   phase 12's JPEG scan in the Tanks-and-Temples layout (its images padded
+   by 4 rows, cy shifted) from a DINOMVSNet checkpoint in the reference's
+   layout: K1-K5 at 6 x their per-request counts, view 0 against
+   `make_infer_fn` on `MVSEvalDataset(dataset="tt")` within the
+   card-to-CPU bounds. Then train at phase 8's
    shape with the -p config (B=8 as 2 micro-batches of 4, 5 views, 512x640,
    192 depths, fix): one warm-up and 3 timed steps, K7/K8 4 launches a
    micro-batch and K1-K6 none, the loss and every trainable gradient finite
@@ -1405,6 +1421,140 @@ def plane_mask(h, w):
     return mask
 
 
+# The committed JPEG fixtures (tools/make_jpeg_fixtures.py, from cv2): the
+# decoder's oracle here, where there is no cv2. Their manifest holds each
+# stream's shape and the sha256 of its cv2 colour (RGB) and grey decodes.
+JPEG_FIXTURES = os.path.join("tests", "fixtures", "jpeg")
+JPEG_RUNS = 5      # decodes of the 1600x1200 stream, timed; the median is printed
+JPEG_THREADS = 4   # the training loader's threads, decoding at once
+
+
+def jpeg_manifest():
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, JPEG_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def jpeg_stream(entry):
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, JPEG_FIXTURES, entry["jpeg"]), "rb") as f:
+        return f.read()
+
+
+def sha256_of(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def write_jpeg_scan(root, png_twin=False):
+    """The committed DTU-layout JPEG scan under `root`: `write_dtu_scan` at
+    its size and seed (the same cams, pair, Depths_raw and images as the
+    fixtures were encoded from), with images/*.jpg replaced by the committed
+    cv2 JPEG streams; with `png_twin`, by PNGs of the port's decodes of
+    them, each first held to its committed cv2 digest. Returns the dataset
+    root, root/dtu."""
+    import shutil
+
+    from mvsformer_torch.utils.jpeg import decode_jpeg
+    from mvsformer_torch.utils.image import write_png
+
+    m = jpeg_manifest()
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = write_dtu_scan(root, img_hw=tuple(m["scan_hw"]), seed=m["scan_seed"])
+    for vid, entry in m["scan"].items():
+        dst = os.path.join(data, "scan1", "images", f"{vid}.jpg")
+        if not png_twin:
+            shutil.copyfile(os.path.join(here, JPEG_FIXTURES, entry["jpeg"]), dst)
+            continue
+        rgb = decode_jpeg(jpeg_stream(entry))
+        if sha256_of(rgb) != entry["rgb_sha256"]:
+            raise RuntimeError(f"{entry['jpeg']}: the port's decode is not cv2's")
+        write_png(dst, rgb)
+    return data
+
+
+def check_cli_launches(log_name, specs, requests):
+    """The test CLI's "kernel launches in phase 1" line from
+    chiprun_out/<log_name>.log: every kernel of `specs` launched `requests`
+    x its per-request count, and nothing else. Returns the counts."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "chiprun_out", f"{log_name}.log")) as f:
+        lines = [ln for ln in f if ln.startswith("kernel launches in phase 1")]
+    if len(lines) != 1:
+        raise RuntimeError(f"{log_name}.log: {len(lines)} launch lines, want 1")
+    got = json.loads(lines[0].split(": ", 1)[1])
+    want = {n: requests * s["per_request"] for n, s in specs.items() if s["per_request"]}
+    if got != want:
+        raise RuntimeError(f"{log_name}: launches {got}, want {want}")
+    return got
+
+
+def jpeg_checks(card, png_decode_ms):
+    """11h: build the host JPEG decoder, decode every committed fixture in
+    colour and grey against its cv2 decode, time the 1600x1200 stream
+    beside the PNG decode of the same pixels, and decode it from
+    `JPEG_THREADS` threads at once. Returns the details."""
+    import statistics
+
+    from mvsformer_torch.utils import jpeg
+    from mvsformer_torch.utils.image import read_image
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cached = jpeg.lib_path().exists()
+    t_start = time.perf_counter()
+    jpeg.library()
+    build_s = time.perf_counter() - t_start
+    m = jpeg_manifest()
+    entries = dict({f"small/{k}": v for k, v in m["small"].items()}, view0=m["view0"],
+                   **{f"scan/{k}": v for k, v in m["scan"].items()})
+    bad = []
+    for name, e in entries.items():
+        stream = jpeg_stream(e)
+        rgb, grey = jpeg.decode_jpeg(stream), jpeg.decode_jpeg(stream, gray=True)
+        if list(grey.shape) != e["shape"] or (sha256_of(rgb), sha256_of(grey)) != (
+                e["rgb_sha256"], e["grey_sha256"]):
+            bad.append(name)
+        for key, got, gray in (("rgb_png", rgb, False), ("grey_png", grey, True)):
+            if key in e:
+                want = read_image(os.path.join(here, JPEG_FIXTURES, e[key]), gray=gray)
+                if want.shape != got.shape or (want != got).any():
+                    bad.append(f"{name} {key}")
+    print(f"JPEG decoder: {'cached' if cached else 'built'} in {build_s:.2f} s; "
+          f"{len(entries)} committed streams decoded in colour and grey, "
+          f"{len(entries) - len(bad)} bit-equal to their cv2 decodes", flush=True)
+    if bad:
+        raise RuntimeError(f"JPEG decodes differ from cv2's: {bad}")
+    path = os.path.join(here, JPEG_FIXTURES, m["view0"]["jpeg"])
+    times = {}
+    for label, gray in (("colour", False), ("grey", True)):
+        runs = []
+        for _ in range(JPEG_RUNS):
+            t0 = time.perf_counter()
+            read_image(path, gray=gray)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        times[label] = statistics.median(runs)
+    stream = jpeg_stream(m["view0"])
+    serial = jpeg.decode_jpeg(stream)
+    with concurrent.futures.ThreadPoolExecutor(JPEG_THREADS) as pool:
+        t0 = time.perf_counter()
+        threaded = list(pool.map(lambda _: jpeg.decode_jpeg(stream), range(JPEG_THREADS)))
+        threads_ms = (time.perf_counter() - t0) * 1e3
+    if any(t.shape != serial.shape or (t != serial).any() for t in threaded):
+        raise RuntimeError("a JPEG decode from several threads differs from the serial one")
+    h, w = m["view0"]["shape"]
+    print(f"JPEG {w}x{h} 4:2:0 q{m['quality']} ({len(stream) / 1e6:.2f} MB): read_image "
+          f"median of {JPEG_RUNS} {times['colour']:.1f} ms in colour, {times['grey']:.1f} ms "
+          f"grey; the PNG of the same pixels {png_decode_ms:.1f} ms (11a); {JPEG_THREADS} "
+          f"threads at once {threads_ms:.1f} ms, each the serial result [{card}]", flush=True)
+    return {"seconds": time.perf_counter() - t_start, "build_s": build_s, "cached": cached,
+            "streams": len(entries),
+            "decode_ms": times, "png_decode_ms": png_decode_ms,
+            "threads": JPEG_THREADS, "threads_ms": threads_ms}
+
+
 def write_png_filtered(path, img, row_filter=None):
     """RGB uint8 [H, W, 3] -> an 8-bit PNG whose rows all take `row_filter`
     (0-4: None, Sub, Up, Average, Paeth) or, if it is None, each the filter
@@ -1824,6 +1974,11 @@ def pipeline_phase(torch, card, specs, device="cuda"):
                                       logger=lambda *a: None)
             if not os.path.exists(ply):
                 raise RuntimeError(f"fusion {method}: no PLY")
+
+        subphase("11h")
+        # 11h. JPEG: the host decoder on every committed fixture against its
+        # cv2 decode, its time beside 11a's PNG decode, and 4 threads at once.
+        jpeg_details = jpeg_checks(card, decode_ms)
         subphase(None)
         print("fusion of the random weights' depths (confidence threshold 0): "
               + ", ".join(f"{m} {n} points" for m, n in smoke.items()))
@@ -1839,7 +1994,7 @@ def pipeline_phase(torch, card, specs, device="cuda"):
             "deterministic": {"view0": det_saved, "rerun": det_rerun,
                               "forward_ms": det_forward},
             "small_card_vs_cpu": small_errs, "fusion": fusion, "smoke_points": smoke,
-            "png_decode_ms": decode_ms, "peak_memory_gb": peak_gb,
+            "png_decode_ms": decode_ms, "jpeg": jpeg_details, "peak_memory_gb": peak_gb,
             "save_depth_peak_memory_gb": path_peak_gb}
 
 
@@ -2082,7 +2237,7 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
         run1_s = run_cli("mvsformer_torch.train", [
             "--config", config1, "--profile_dir", pdir, "--profile_start", str(RUN_PROFILE[0]),
             "--profile_steps", str(RUN_PROFILE[1])] + cli_device, "training_run_1")
-        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        eval_data = write_jpeg_scan(os.path.join(root, "eval"))
         out = os.path.join(root, "test_out")
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
             run2 = pool.submit(run_cli, "mvsformer_torch.train",
@@ -2157,13 +2312,35 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
               f"buffers) and the AdamW moments of {len(opt)} tensors bit-equal to the file")
 
         subphase("12d")
-        # 12d. The test CLI's files (12b ran it on phase 11's eval scan),
-        # against make_infer_fn. The CLI computes in bf16, its default:
-        # make_infer_fn of the bf16 model.
-        best = build_model(cfg.arch, device=device, dtype=torch.bfloat16)
-        load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), best)
+        # 12d. The test CLI's files (12b ran it on the committed JPEG scan),
+        # against make_infer_fn. First the dataset's samples of the JPEG scan
+        # against those of its PNG twin (the committed cv2 decodes), bit for
+        # bit; then the CLI's launches. The CLI computes in bf16, its
+        # default: make_infer_fn of the bf16 model.
+        twin = write_jpeg_scan(os.path.join(root, "eval_png"), png_twin=True)
         ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
                             interval_scale=1.06, max_h=H, max_w=W)
+        ds_png = MVSEvalDataset(twin, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
+                                interval_scale=1.06, max_h=H, max_w=W)
+        unequal = []
+        for i in (0, len(ds) - 1):  # between them every view of the scan
+            a, b = collate([ds[i]]), collate([ds_png[i]])
+            for k in ("imgs", "depth_values", "depth_gt", "mask"):
+                if not np.array_equal(a[k], b[k]):
+                    unequal.append(f"{i} {k}")
+            unequal += [f"{i} {k}" for k in a["proj_matrices"]
+                        if not np.array_equal(a["proj_matrices"][k], b["proj_matrices"][k])]
+        scan_h, scan_w = jpeg_manifest()["scan_hw"]
+        print(f"JPEG scan ({len(ds)} views, {scan_w}x{scan_h} resized to {W}x{H}): the eval "
+              f"dataset's samples 0 and {len(ds) - 1} against its PNG twin's: "
+              + ("bit-equal" if not unequal else f"DIFFER in {unequal}"), flush=True)
+        if unequal:
+            raise RuntimeError("the eval dataset reads the JPEG scan otherwise than its PNG twin")
+        cli_counts = check_cli_launches("training_run_test", eval_specs, len(ds))
+        print(f"test CLI launches over {len(ds)} requests: {json.dumps(cli_counts)} "
+              f"({len(ds)} x per request)", flush=True)
+        best = build_model(cfg.arch, device=device, dtype=torch.bfloat16)
+        load_reference_checkpoint(os.path.join(run_dir, "model_best.pth"), best)
         sample = collate([ds[0]])
         depth, conf, _ = make_infer_fn(best)(
             sample["imgs"], {k: sample["proj_matrices"][k] for k in STAGES},
@@ -2248,11 +2425,12 @@ def training_run_phase(torch, card, eval_specs, device="cuda"):
               "forward ms): "
               + ", ".join(f"{r['crop'][0]}x{r['crop'][1]} {r['train_ms']:.0f}/{r['eval_ms']:.0f}"
                           for r in sweep) + f"; all finite [{card}]", flush=True)
-        launches = {}
+        launches = dict(cli_counts)
         for r in recs:
             for name, n in r.get("launches", {}).items():
                 launches[name] = launches.get(name, 0) + n
         details = {"records": recs, "run_s": [run1_s, run2_s], "test_cli_s": test_s,
+                   "test_cli_launches": cli_counts, "jpeg_scan_vs_png_twin": unequal,
                    "view0_gap": [gap_d, gap_c], "profile": profile, "sweep": sweep,
                    "rows_by_filter": filters, "first_lr": first_lr}
     finally:
@@ -2376,13 +2554,15 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
     if not e2e_ok:
         raise RuntimeError("the DINO forward on the card disagrees with the CPU forward")
 
-    # 13g. The test CLI on phase 11's eval scan, from a checkpoint in the
-    # reference's layout, against make_infer_fn.
+    # 13g. The test CLI on the committed JPEG scan in the Tanks-and-Temples
+    # layout (`--dataset tt`: images padded by 4 rows, cy shifted), from a
+    # checkpoint in the reference's layout, against make_infer_fn on
+    # MVSEvalDataset(dataset="tt").
     root = os.path.join(here, "build", "dino_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     try:
-        eval_data = write_dtu_scan(os.path.join(root, "eval"))
+        eval_data = write_jpeg_scan(os.path.join(root, "eval"))
         listfile = os.path.join(root, "scans.txt")
         with open(listfile, "w") as f:
             f.write("scan1\n")
@@ -2393,10 +2573,11 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
             "--testpath", eval_data, "--testlist", listfile, "--ckpt_dir", root,
             "--torch_ckpt", os.path.join(root, "dino.pth"), "--outdir", out, "--skip_fusion",
             "--max_h", str(H), "--max_w", str(W), "--ndepths", str(NDEPTH_FULL),
-            "--num_view", str(PIPE_NUM_VIEW), "--dtype", "fp32"]
+            "--num_view", str(PIPE_NUM_VIEW), "--dtype", "fp32", "--dataset", "tt"]
             + ([] if device == "cuda" else ["--device", device]), "dino_test")
         ds = MVSEvalDataset(eval_data, ["scan1"], nviews=PIPE_NUM_VIEW, ndepths=NDEPTH_FULL,
-                            interval_scale=1.06, max_h=H, max_w=W)
+                            interval_scale=1.06, max_h=H, max_w=W, dataset="tt")
+        tt_counts = check_cli_launches("dino_test", specs, len(ds))
         sample = collate([ds[0]])
         d0, c0, _ = fn(sample["imgs"], {k: sample["proj_matrices"][k] for k in STAGES},
                        sample["depth_values"])
@@ -2406,8 +2587,10 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
                              - c0[0].cpu().numpy()).max())
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    print(f"DINO test CLI ({test_s:.1f} s): view 0 against make_infer_fn: depth {gap_d:.3e}, "
-          f"confidence {gap_c:.3e} (tolerance {E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})", flush=True)
+    print(f"DINO test CLI, --dataset tt on the JPEG scan ({test_s:.1f} s; launches "
+          f"{json.dumps(tt_counts)}, {len(ds)} x per request): view 0 against make_infer_fn: "
+          f"depth {gap_d:.3e}, confidence {gap_c:.3e} (tolerance {E2E_DEPTH_ATOL:g}, "
+          f"{E2E_CONF_ATOL:g})", flush=True)
     if gap_d > E2E_DEPTH_ATOL or gap_c > E2E_CONF_ATOL:
         raise RuntimeError("the test CLI's DINO view 0 disagrees with make_infer_fn")
     del model, fn, request, depth, conf, d0, c0
@@ -2500,6 +2683,7 @@ def dino_phase(torch, card, eval_specs, device="cuda"):
         "peak_memory_gb": peak_gb, "launches": launches, "layers_ms": layers,
         "profiled_wall_ms": wall_ms, "profiled_kernel_ms": busy_ms, "top_kernels": top,
         "e2e_small_errors": e2e, "test_cli_s": test_s, "view0_gap": [gap_d, gap_c],
+        "test_cli_tt_launches": tt_counts,
         "step_ms": [t * 1e3 for t in step_times], "train_steps_per_s": 1 / mean_step,
         "train_peak_memory_gb": train_peak_gb, "step_launches": step_launches,
         "metrics": metrics, "card_vs_cpu_step": step_errs}}

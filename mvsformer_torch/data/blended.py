@@ -8,8 +8,9 @@ first 7 sources shuffled in training, the mask taken from depth > 0, the
 depth interval re-derived from the cam file's depth count, and resize
 scales clipped to [0.375, 1] of 1536 x 2048.
 
-`blended_images/*.jpg` go through `utils/image.read_image`, which raises on
-a real JPEG stream (ROADMAP A3); PNG bytes under those names are read.
+`blended_images/*.jpg` go through `utils/image.read_image`, which decodes
+BlendedMVS's baseline JPEG bit for bit as cv2 does (and PNG bytes under
+those names too).
 """
 
 from __future__ import annotations

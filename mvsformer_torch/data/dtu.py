@@ -12,7 +12,8 @@ OpenCV. Samples are numpy, channels last, as the JAX dataset gives them:
     {imgs [V, H, W, 3] float32 (normalised), proj_matrices {stageK: [V, 2, 4, 4]},
      depth {stageK: [H/s, W/s]}, mask {stageK}, depth_values [D], filename}
 
-The mask is the reference view's grey `depth_visual` PNG > 10.
+The mask is the reference view's grey `depth_visual` PNG > 10. Images are
+JPEG (decoded bit for bit as cv2 decodes it), PNG, PPM or PGM, by content.
 """
 
 from __future__ import annotations

@@ -8,8 +8,10 @@ projections (stage1..4 = K/8..K/1 of the resized input, plus a copy of
 stage4 as stage5 for refine models), and the DTU ground-truth depth and mask
 for the depth metrics.
 
-Images are read by the port's own codecs (`utils/image.py`: PNG, PPM, PGM;
-JPEG raises) and resized by its OpenCV-convention resizes, on the CPU.
+Images are read by the port's own codecs (`utils/image.py`: baseline JPEG,
+decoded bit for bit as cv2 decodes it, PNG, PPM and PGM) and resized by its
+OpenCV-convention resizes, on the CPU. The mask's grey read of a JPEG is its
+Y plane, as cv2's IMREAD_GRAYSCALE.
 """
 
 from __future__ import annotations

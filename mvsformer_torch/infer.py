@@ -11,9 +11,9 @@ of the source views each, a slab of each stage's depth hypotheses each),
 and one rank of each such group writes.
 
 `images/*.jpg` keeps the JAX package's file name but holds PNG bytes (the
-port has no JPEG codec): the reference image is saved without loss, and a
-reader that sniffs the content, as `cv2.imread` and the port's `read_image`
-do, reads it under either name.
+port decodes JPEG but has no encoder): the reference image is saved without
+loss, and a reader that sniffs the content, as `cv2.imread` and the port's
+`read_image` do, reads it under either name.
 """
 
 from __future__ import annotations
@@ -93,10 +93,10 @@ def save_depth(model, testlist, datapath, outdir, num_view=5, ndepths=192,
 
     Each request is read, run and written in turn: the JAX version's overlap
     of one request's readback and writes with the next forward is not ported
-    (ROADMAP B). With a list as `timings`, each request appends its host ms:
-    "load_ms" (the dataset), "forward_ms" (inputs to the device, the
-    forward, the metrics, and the outputs back to the host) and "write_ms"
-    (the files).
+    (ROADMAP "Parked"). With a list as `timings`, each request appends its
+    host ms: "load_ms" (the dataset), "forward_ms" (inputs to the device,
+    the forward, the metrics, and the outputs back to the host) and
+    "write_ms" (the files).
 
     As one rank of the model's layout: data rank d serves the reference
     views d, d + data, ... of the dataset's order in batches of

@@ -20,14 +20,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from mvsformer_torch.utils import shared_lib
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -64,7 +63,6 @@ SIGNATURES = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
-_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -81,11 +79,9 @@ def _nvcc() -> str:
 def lib_path(name: str) -> Path:
     """The library's path; its hash covers the source, every shared header
     of `csrc/` (any source may include one) and the flags."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    headers = [h.name.encode() + h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    return shared_lib.hashed_path(BUILD_DIR, name, (CSRC / f"{name}.cu").read_bytes(), *headers,
+                                  " ".join(NVCC_FLAGS).encode())
 
 
 def build(names=tuple(SIGNATURES)) -> dict:
@@ -94,38 +90,17 @@ def build(names=tuple(SIGNATURES)) -> dict:
     Returns {name: {"seconds": wall time or 0.0 if cached, "ptxas": the
     compiler's register and shared-memory report}}. Raises on a failed build.
     """
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs, report = {}, {}
-    t0 = time.perf_counter()
-    for name in names:
-        out = lib_path(name)
-        if out.exists():
-            report[name] = {"seconds": 0.0, "ptxas": ""}
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.PIPE, text=True), tmp, out)
-    for name, (proc, tmp, out) in jobs.items():
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{stdout}\n{stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": stderr}
-    return report
+    missing = [name for name in names if not lib_path(name).exists()]
+    nvcc = [_nvcc(), *NVCC_FLAGS] if missing else []
+    report = shared_lib.compile_all(
+        {name: (nvcc, CSRC / f"{name}.cu", lib_path(name)) for name in names})
+    return {name: {"seconds": r["seconds"], "ptxas": r["stderr"]} for name, r in report.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+    return shared_lib.library(name, lambda: lib_path(name), CSRC / f"{name}.cu",
+                              lambda: [_nvcc(), *NVCC_FLAGS], SIGNATURES[name])
 
 
 def check_launch(rc: int, what: str) -> None:

@@ -40,14 +40,16 @@ Departures from the JAX CLI:
   after `python tools/orbax_to_torch.py <run_dir> <out_dir>` has converted
   them where JAX and orbax are installed (the card's machine has neither);
   `--ckpt_dir <out_dir>` then serves them.
-- The scans' images must be PNG, PPM or PGM (under their `.jpg` names is
-  fine): the port decodes no JPEG (ROADMAP A3), and saves `images/*.jpg`
-  as PNG bytes.
+- The scans' images are read by their content, whatever their names:
+  JPEG (baseline and extended sequential, decoded bit for bit as cv2
+  decodes it), PNG, PPM and PGM; a progressive JPEG raises. `images/*.jpg`
+  is saved as PNG bytes (the port has no JPEG encoder).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 
@@ -58,8 +60,8 @@ def parse_args(argv=None):
                "weights come from <ckpt_dir>/<which_ckpt>.pth or --torch_ckpt (a JAX run's "
                "orbax directories after python tools/orbax_to_torch.py <run_dir> <out_dir>); "
                "--data_parallel defaults to -1; --dist_backend and --dist_url start the "
-               "process group under torchrun; input images must be PNG, "
-               "PPM or PGM (no JPEG decoder: ROADMAP A3), and images/*.jpg is written as PNG.")
+               "process group under torchrun; input images are read by content (JPEG, PNG, PPM "
+               "and PGM; a progressive JPEG raises), and images/*.jpg is written as PNG.")
     parser.add_argument("--dataset", default="dtu", choices=["dtu", "tt"])
     parser.add_argument("--testpath", required=True)
     parser.add_argument("--testlist", default=None,
@@ -137,6 +139,7 @@ def main(argv=None):
     from mvsformer_torch.fuse import fuse_scan
     from mvsformer_torch.infer import save_depth
     from mvsformer_torch.models.mvsformer import build_model
+    from mvsformer_torch.ops import cuda_build
     from mvsformer_torch.parallel.mesh import start, stop
     from mvsformer_torch.train.checkpoint import ORBAX_HINT
     from mvsformer_torch.utils.convert_weights import load_reference_checkpoint
@@ -178,11 +181,16 @@ def main(argv=None):
                               (pair.split(":") for pair in args.interval_scale.split(","))}
         else:
             interval_scale = float(args.interval_scale)
+        before = dict(cuda_build.LAUNCHES)
         save_depth(model, testlist, args.testpath, args.outdir, num_view=args.num_view,
                    ndepths=args.ndepths, interval_scale=interval_scale, max_h=args.max_h,
                    max_w=args.max_w, tmps=tmps, dataset=args.dataset,
                    batch_size=args.batch_size // layout.data, combine_conf=args.combine_conf,
                    use_short_range=args.use_short_range, device=device)
+        launches = {k: n - before.get(k, 0) for k, n in cuda_build.LAUNCHES.items()
+                    if n > before.get(k, 0)}
+        print(f"kernel launches in phase 1 (rank {layout.rank}): "
+              + json.dumps(launches, sort_keys=True), flush=True)
 
     if not args.skip_fusion and layout.rank == 0:
         prob_threshold = [float(p) for p in args.prob_threshold.split(",")]

@@ -1,20 +1,29 @@
 """Image files and resizes, without an image library.
 
 The machine with the card has no `cv2`, `PIL` or `torchvision`, so the port
-keeps its own codecs (stdlib `zlib` and numpy) and writes out the two resizes
-that the JAX package takes from `cv2.resize`.
+keeps its own codecs (stdlib `zlib`, numpy and a host C++ JPEG decoder) and
+writes out the two resizes that the JAX package takes from `cv2.resize`.
 
 Reading (`read_image`) sniffs the file's first bytes, as `cv2.imread` does,
 not its extension:
+- JPEG (`utils/jpeg.py`): baseline and extended sequential, Huffman-coded,
+  8-bit, grey or YCbCr in one scan at 4:4:4, 4:2:2, 4:4:0 or 4:2:0, with
+  restart intervals and optimised tables, decoded bit for bit as
+  `cv2.imread` decodes it (libjpeg-turbo's integer IDCT, upsampling and
+  colour tables). A grey read of a YCbCr JPEG is its Y plane, as
+  `IMREAD_GRAYSCALE` gives it, not the grey of the colour read.
 - PNG: 8-bit, non-interlaced, colour types 0 (grey), 2 (RGB) and 6
   (RGBA), with all five row filters; alpha is dropped.
 - Binary PPM (P6) and PGM (P5) with a maxval up to 255.
-- Anything else raises `ValueError` naming the format: 16-bit, palette,
-  grey+alpha or interlaced PNG, and JPEG, which the port does not decode
-  (ROADMAP A3).
+- Anything else raises `ValueError` naming the format: progressive,
+  lossless, arithmetic-coded, hierarchical, 12-bit, CMYK and RGB JPEG, a
+  JPEG whose EXIF orientation would turn it, and a truncated JPEG (where
+  cv2.imread returns a partly grey image); 16-bit, palette, grey+alpha or
+  interlaced PNG.
 
 It returns RGB uint8 [H, W, 3], or grey [H, W] with `gray=True`; a colour
-image read as grey takes OpenCV's `COLOR_BGR2GRAY` weights and rounding.
+PNG or PPM read as grey takes OpenCV's `COLOR_BGR2GRAY` weights and
+rounding.
 
 Writing (`write_png`) uses the Up filter on every row and a fast zlib level,
 which `read_image` undoes in a handful of whole-image numpy calls.
@@ -61,10 +70,10 @@ import zlib
 import numpy as np
 import torch
 
+from mvsformer_torch.utils.jpeg import decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 PNG_ZLIB_LEVEL = 1  # fast: the port writes its PNGs to read them back soon
-JPEG_ITEM = ("ROADMAP A3: a baseline JPEG decoder the port keeps itself, or a "
-             "one-off conversion of the scans to PNG")
 # OpenCV's COLOR_BGR2GRAY for uint8: (R*9798 + G*19235 + B*3735 + 2^14) >> 15.
 _GRAY_WEIGHTS = (9798, 19235, 3735)
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
@@ -79,9 +88,13 @@ def read_image(path: str, gray: bool = False) -> np.ndarray:
     elif data[:2] in (b"P5", b"P6"):
         img = decode_pnm(data)
     elif data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path}: a JPEG stream; the port does not decode JPEG ({JPEG_ITEM})")
+        try:
+            return decode_jpeg(data, gray)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
     else:
-        raise ValueError(f"{path}: not a PNG, PPM or PGM file (starts {data[:8]!r})")
+        raise ValueError(f"{path}: not a PNG, PPM or PGM file, nor a JPEG stream "
+                         f"(starts {data[:8]!r})")
     return to_gray(img) if gray else to_rgb(img)
 
 

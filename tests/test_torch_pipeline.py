@@ -12,13 +12,18 @@ own `load_reference_checkpoint`. The model is tests/test_torch_model.py's:
   every array equal to the JAX dataset's, but the images, which go through
   the bilinear resize at 64x64 -> 48x56 within one grey level of OpenCV's
   (tests/test_torch_image.py), that is 1 / 255 / min(std) after
-  normalisation; at equal sizes they are equal.
+  normalisation; at equal sizes they are equal. The same on the tree's JPEG
+  twin (every image written by `cv2.imwrite` as JPEG, the masks as colour
+  JPEG streams under their .png names, which both packages read by
+  content: a grey read of one is its Y plane), for dtu and tt.
 - `save_depth`, images at the model's size (the resize is the identity on
   both sides): depth within 1e-2, confidence within 1e-4 (the model test's
   bounds), the cams' numbers equal, the PNG the JAX image before its JPEG
   encoding, and depth_metric.txt within 1e-4.
 - JAX `fuse_scan` on the port's output folder against the port's: the same
-  number of points, coordinates within 1e-4 relative, colours equal.
+  number of points, coordinates within 1e-4 relative, colours equal; and
+  the same on the JAX package's own folder, whose images/*.jpg are real
+  JPEG (`cv2.imwrite`).
 - `python -m mvsformer_torch.test` through `main(argv)` on the CPU, to a PLY.
 """
 
@@ -128,6 +133,27 @@ def tree(tmp_path_factory):
     return dict(root=str(root), data=write_tree(str(root)))
 
 
+@pytest.fixture(scope="module")
+def jpeg_tree(tmp_path_factory):
+    """`write_tree`'s tree with every image rewritten by cv2 as JPEG (its
+    default quality 95, 4:2:0) and every mask as a colour JPEG stream."""
+    root = str(tmp_path_factory.mktemp("pipeline_jpeg"))
+    data = write_tree(root)
+    for scan in ("scan1", "scan2"):
+        folder = os.path.join(data, scan, "images")
+        for name in os.listdir(folder):
+            path = os.path.join(folder, name)
+            assert cv2.imwrite(path, cv2.imread(path))  # .jpg: cv2 writes JPEG
+    gt = os.path.join(root, "Depths_raw", "scan1")
+    for name in os.listdir(gt):
+        if name.endswith(".png"):
+            m = cv2.imread(os.path.join(gt, name), cv2.IMREAD_GRAYSCALE)
+            ok, buf = cv2.imencode(".jpg", cv2.merge([m, np.roll(m, 2, axis=0), m]))
+            with open(os.path.join(gt, name), "wb") as f:
+                f.write(buf.tobytes())
+    return dict(root=root, data=data)
+
+
 # ---- the dataset -----------------------------------------------------------
 
 DATASETS = {
@@ -143,12 +169,23 @@ DATASETS = {
 
 @pytest.mark.parametrize("name", list(DATASETS))
 def test_eval_dataset_matches_jax(tree, name):
+    check_eval_dataset(tree["data"], name)
+
+
+@pytest.mark.parametrize("name", ["dtu", "dtu_resized", "tt", "tt_short_range"])
+def test_eval_dataset_on_jpeg_matches_jax(jpeg_tree, name):
+    with open(os.path.join(jpeg_tree["data"], "scan1", "images", "00000000.jpg"), "rb") as f:
+        assert f.read(2) == b"\xff\xd8"  # a JPEG stream
+    check_eval_dataset(jpeg_tree["data"], name)
+
+
+def check_eval_dataset(data, name):
     kw = dict(DATASETS[name])
     scans = kw.pop("scans", ["scan1"])
     kw = dict(dict(nviews=NUM_VIEW, ndepths=NDEPTHS, interval_scale=1.06, max_h=SIZE,
                    max_w=SIZE), **kw)
-    jds = jax_eval.MVSEvalDataset(tree["data"], scans, **kw)
-    tds = port_eval.MVSEvalDataset(tree["data"], scans, **kw)
+    jds = jax_eval.MVSEvalDataset(data, scans, **kw)
+    tds = port_eval.MVSEvalDataset(data, scans, **kw)
     assert jds.metas == tds.metas and len(tds) > 0
     resized = (kw["max_h"], kw["max_w"]) != (SIZE, SIZE) or kw["dataset"] == "tt"
     for i in range(len(tds)):
@@ -175,16 +212,6 @@ def test_eval_dataset_matches_jax(tree, name):
     loaded = next(iter(eval_loader(tds, batch_size=2)))
     assert loaded["filename"] == batch["filename"]
     np.testing.assert_array_equal(loaded["imgs"], batch["imgs"])
-
-
-def test_eval_dataset_refuses_jpeg_naming_the_roadmap_item(tmp_path):
-    data = write_tree(str(tmp_path))
-    cv2.imwrite(os.path.join(data, "scan1", "images", "00000001.jpg"),
-                np.zeros((SIZE, SIZE, 3), np.uint8))
-    ds = port_eval.MVSEvalDataset(data, ["scan1"], nviews=NUM_VIEW, ndepths=NDEPTHS,
-                                  max_h=SIZE, max_w=SIZE)
-    with pytest.raises(ValueError, match="JPEG.*ROADMAP A3"):
-        ds[0]
 
 
 # ---- metrics ---------------------------------------------------------------
@@ -336,6 +363,25 @@ def test_jax_fuse_scan_on_the_ports_folder(saved, tree, tmp_path, method, folder
     np.testing.assert_array_equal(tc, jc)
 
 
+@pytest.mark.parametrize("method", list(FUSIONS))
+def test_port_fuse_scan_on_the_jax_folder(saved, tree, tmp_path, method):
+    """The JAX package's save_depth writes images/*.jpg as real JPEG; the
+    port fuses its folder as the JAX fuse_scan does, colours equal."""
+    scan = os.path.join(saved["jax"], "scan1")
+    with open(os.path.join(scan, "images", "00000000.jpg"), "rb") as f:
+        assert f.read(2) == b"\xff\xd8"  # a JPEG stream
+    kw = dict(method=method, prob_threshold=(0.0,) * 4, n_src_views=NV - 1,
+              logger=lambda *a: None, **FUSIONS[method])
+    pair = os.path.join(tree["data"], "scan1")
+    n_jax = jax_fuse.fuse_scan(pair, scan, str(tmp_path / "jax.ply"), **kw)
+    n_port = port_fuse.fuse_scan(pair, scan, str(tmp_path / "port.ply"), device="cpu", **kw)
+    assert n_port == n_jax and n_port > 100, (n_port, n_jax)
+    jp, jc = read_ply(str(tmp_path / "jax.ply"))
+    tp, tc = read_ply(str(tmp_path / "port.ply"))
+    np.testing.assert_allclose(tp, jp, rtol=0, atol=FUSE_ATOL * float(np.abs(jp).max()))
+    np.testing.assert_array_equal(tc, jc)
+
+
 def test_cli_runs_save_depth_and_fusion_on_the_cpu(tree, ckpt, tmp_path):
     listfile = str(tmp_path / "list.txt")
     with open(listfile, "w") as f:
@@ -430,7 +476,8 @@ def test_cli_help_states_the_departures(capsys):
     text = " ".join(capsys.readouterr().out.split())
     for needle in ("--device replaces --platform", "bf16 (the default)",
                    "python tools/orbax_to_torch.py <run_dir> <out_dir>",
-                   "--data_parallel defaults to -1", "no JPEG decoder", "written as PNG"):
+                   "--data_parallel defaults to -1", "read by content (JPEG, PNG, PPM and PGM",
+                   "a progressive JPEG raises", "written as PNG"):
         assert needle in text, needle
 
 

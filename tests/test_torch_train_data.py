@@ -21,7 +21,13 @@
   JAX package the same.
 
 The synthetic DTU tree is tests/test_data.py's `make_dtu_tree` at 240x320,
-with the datasets' base size patched to it as the JAX tests do.
+with the datasets' base size patched to it as the JAX tests do. Its JPEG
+twin (every image and mask re-encoded by cv2 as a JPEG stream under its
+own name, as cv2.imread and the port both read by content) and a BlendedMVS
+tree with real JPEG under blended_images/*.jpg give one seeded training
+sample each, port against JAX at the same bounds: the port's decoder gives
+cv2's pixels (tests/test_torch_jpeg.py), and a mask's grey read of a JPEG
+is its Y plane in both.
 """
 
 import dataclasses
@@ -179,6 +185,37 @@ def blended_root(tmp_path_factory):
     return write_blended_tree(str(tmp_path_factory.mktemp("blended")))
 
 
+def as_jpeg(path, gray=False):
+    """Re-encode the image at `path` as a cv2 JPEG stream (quality 90,
+    4:2:0) under the same name."""
+    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+    if gray:  # a colour stream, so that the grey read takes the Y plane
+        img = cv2.merge([img, np.roll(img, 3, axis=1), img])
+    ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    assert ok
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+
+
+@pytest.fixture(scope="module")
+def dtu_jpeg_root(tmp_path_factory):
+    root = make_dtu_tree(str(tmp_path_factory.mktemp("dtu_jpeg")), H=240, W=320)
+    for sub, gray in (("DTU_origin/Rectified/scan1", False), ("Depths_raw/scan1", True)):
+        for name in os.listdir(os.path.join(root, sub)):
+            if name.endswith(".png"):
+                as_jpeg(os.path.join(root, sub, name), gray)
+    return root
+
+
+@pytest.fixture(scope="module")
+def blended_jpeg_root(tmp_path_factory):
+    root = write_blended_tree(str(tmp_path_factory.mktemp("blended_jpeg")))
+    images = os.path.join(root, "scanA", "scanA", "scanA", "blended_images")
+    for name in os.listdir(images):
+        as_jpeg(os.path.join(images, name))
+    return root
+
+
 def assert_same_sample(a, b):
     for key in ("proj_matrices", "depth", "mask"):
         assert set(a[key]) == set(b[key])
@@ -222,6 +259,26 @@ def test_blended_samples_match_jax(blended_root, mode, crop):
         s = port[i]
         assert_same_sample(s, ref[i])
         assert np.array_equal(s["mask"]["stage4"], (s["depth"]["stage4"] > 0).astype(np.float32))
+    assert port.rng.random() == ref.rng.random()
+
+
+@pytest.mark.parametrize("kind", ["dtu", "blended"])
+def test_a_sample_on_jpeg_images_matches_jax(dtu_jpeg_root, blended_jpeg_root, kind):
+    if kind == "dtu":
+        root, scan = dtu_jpeg_root, "scan1"
+        img = os.path.join(root, "DTU_origin/Rectified/scan1/rect_001_3_r5000.png")
+        port, ref = dataset_pair(DTUMVSDataset, JaxDTU, root, [scan], "train", CROPS[0],
+                                 (240, 320))
+    else:
+        root, scan = blended_jpeg_root, "scanA"
+        img = os.path.join(root, "scanA/scanA/scanA/blended_images/00000000.jpg")
+        port, ref = dataset_pair(BlendedMVSDataset, JaxBlended, root, [scan], "train",
+                                 [96, 128], (120, 160), ndepths=64)
+    with open(img, "rb") as f:
+        assert f.read(2) == b"\xff\xd8"  # a JPEG stream
+    s = port[0]
+    assert_same_sample(s, ref[0])
+    assert s["mask"]["stage4"].any() and not s["mask"]["stage4"].all()
     assert port.rng.random() == ref.rng.random()
 
 
