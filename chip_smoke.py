@@ -299,11 +299,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    and block i's vit_lr x layer_decay^(12 - i), and block 0's qkv update
    on the card the CPU's and its LR's size. Each kernel's entry of the
    kernels line adds this phase's checks and launches.
-19. Print the wall seconds of each phase, one JSON line of per-kernel
+19. The four accuracy gates of the JAX package (tests/test_geometric_e2e.py,
+   tests/test_convergence.py) with their scenes, configuration (GN,
+   full-width alt_gvt_small, ndepths 8/4/4/2, drop path 0), learning
+   rates, steps, evaluation cadence and thresholds, fp32 with TF32 off,
+   each loop under deterministic cuDNN, from `random_init_` at seed 0.
+   19a, 19b: the analytic-plane gates, a re model trained on every
+   reference view of the committed 128x128 JPEG views
+   (tests/fixtures/gates/) written in the DTU layout (19a) and the
+   Tanks-and-Temples layout with short-range cams (19b); the best
+   weights saved by the port's CheckpointManager with the gate's
+   config.json and served by `python -m mvsformer_torch.test` (pcd; dpcd
+   with `--use_short_range`; 19a also `--dtype bf16`), its
+   depth_metric.txt and PLY held to the JAX gates' thresholds and its view
+   0 to the best weights' request in this process. 19c: the convergence
+   gates on the committed scenes (ce). Every training step's and eval's
+   launches counted (K7/K8 4 a step; K1 4, K6 9 an eval, K3 4 under ce;
+   the CLI's from its launch line), and each kernel held to its plain
+   version at the first step, the first eval and one request of the
+   CLI's shape. Each kernel's entry of the kernels line adds this phase's
+   checks and launches.
+20. Print the wall seconds of each phase, one JSON line of per-kernel
    numbers, then, last, the result line
    {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json,
    the CLI runs' output to chiprun_out/training_run_*.log,
-   chiprun_out/dino_test.log and chiprun_out/parallel_*.log.
+   chiprun_out/dino_test.log, chiprun_out/parallel_*.log and
+   chiprun_out/gate_*.log.
 
 Bounds: the larger of bytes moved (each input read once, each output
 written once) over 3.35 TB/s and operations over 67 TFLOP/s (fp32 outside
@@ -4660,6 +4681,640 @@ def options_phase(torch, card, device="cuda"):
     return {"rows": rows, "launches": launches, "details": details}
 
 
+# The accuracy gates (phase 19): the JAX package's four gates
+# (tests/test_geometric_e2e.py, tests/test_convergence.py) with their
+# scenes, configuration, learning rates, step counts, evaluation cadence and
+# thresholds, trained by the port. The analytic-plane gates: a textured
+# fronto-parallel plane at z = 77 seen by 5 cameras x-translated by 4 units,
+# rendered at 128x128 (the committed JPEG views, tools/make_gate_fixtures.py)
+# and served at 64x64 over 16 depths from 40 in steps of 5.
+GATE_FIXTURES = os.path.join("tests", "fixtures", "gates")
+GATE_NV = 5
+GATE_IMG = 128                 # the views' size (square)
+GATE_HW = 64                   # served at max_h = max_w = 64
+GATE_FX = 200.0                # at the views' size; the DTU cam files hold 4 K
+GATE_TX = 4.0                  # view v at x = 4 v
+GATE_DEPTH = 77.0              # off the grid, between hypotheses 75 and 80
+GATE_DMIN, GATE_DITV, GATE_ND = 40.0, 5.0, 16
+GATE_TT_FAR = 60.0             # the T&T long-range cams' depth_min, past the plane by this
+GATE_TT_PAD = 4                # rows the T&T loader pads at top and bottom: out of the loss
+GATE_NUM_VIEW = 3
+GATE_LR, GATE_STEPS, GATE_EVAL_EVERY = 6e-4, 120, 8
+GATE_TMPS = (5.0, 5.0, 5.0, 1.0)
+GATE_SEED = 0                  # random_init_'s seed on the card (the CPU tests start from JAX's)
+# The convergence gates' scenes (tests/test_convergence.py make_scene): a
+# 64x64 reference view of a blurred-noise texture and 2 sources at x = 2, 4.
+CONV_HW = 64
+CONV_FX = 80.0
+CONV_PAD = 32
+CONV_BASELINE = 2.0
+CONV_NSRC = 2
+CONV_WINDOW = CONV_HW + 8      # texture columns a scene reads (the sources shift < 6 px)
+CONV_DEPTHS = (55.0, 70.0, 90.0, 105.0)  # rng 0: the loss gate's batch of 4
+CONV_DEPTH1 = 75.0                       # rng 1: the overfit gate's scene
+CONV_LOSS = dict(lr=2e-4, steps=24)
+CONV_FIT = dict(lr=4e-4, steps=60, eval_every=10)
+# Launches of the gates' model (GN: no K2, K4, K5) a training step (one
+# micro-batch) and an eval forward; K3 under ce only.
+GATE_STEP_LAUNCHES = {"warp_corr_fwd": 4, "warp_corr_bwd": 4}
+GATE_EVAL_LAUNCHES = {"warp_group_corr": 4, "gsa_attention": 9}
+GATE_CLI_TIMEOUT_S = 300
+GATE_STAGES = ("stage1", "stage2", "stage3", "stage4")
+
+
+def gate_manifest():
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, GATE_FIXTURES, "manifest.json")) as f:
+        return json.load(f)
+
+
+def gate_file(name, sha256):
+    """The bytes of a committed gate fixture, held to its manifest digest."""
+    import hashlib
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, GATE_FIXTURES, name), "rb") as f:
+        data = f.read()
+    if hashlib.sha256(data).hexdigest() != sha256:
+        raise RuntimeError(f"{GATE_FIXTURES}/{name}: not the file its manifest names")
+    return data
+
+
+def gate_views():
+    """The five committed JPEG views of the analytic-plane gates (bytes)."""
+    views = gate_manifest()["views"]
+    return [gate_file(name, views[name]["sha256"]) for name in sorted(views)]
+
+
+def gate_intrinsics():
+    import numpy as np
+
+    c = GATE_IMG / 2
+    return np.array([[GATE_FX, 0, c], [0, GATE_FX, c], [0, 0, 1]], np.float32)
+
+
+def write_gate_pairs(path):
+    """pair.txt: every other view a source, nearest first."""
+    with open(path, "w") as f:
+        f.write(f"{GATE_NV}\n")
+        for ref in range(GATE_NV):
+            srcs = sorted((v for v in range(GATE_NV) if v != ref), key=lambda v: abs(v - ref))
+            f.write(f"{ref}\n{len(srcs)} "
+                    + " ".join(f"{s} {100 - i}" for i, s in enumerate(srcs)) + "\n")
+
+
+def gate_extrinsic(v):
+    import numpy as np
+
+    ext = np.eye(4, dtype=np.float32)
+    ext[0, 3] = GATE_TX * v
+    return ext
+
+
+def write_plane_scan(root, views):
+    """The DTU gate's eval layout under `root` (tests/test_geometric_e2e.py
+    `_make_plane_scan`) by the port's writers: scan1/pair.txt,
+    scan1/images/*.jpg (`views`, JPEG streams), scan1/cams/*_cam.txt (4 K,
+    depth_min 40, interval 5) and, beside `root`, Depths_raw/scan1 (the
+    plane's depth everywhere, an all-255 mask). Returns `root`."""
+    import numpy as np
+
+    from mvsformer_torch.utils.cams import CameraParams, write_cam_file
+    from mvsformer_torch.utils.image import write_png
+    from mvsformer_torch.utils.pfm import save_pfm
+
+    scan = os.path.join(root, "scan1")
+    gt = os.path.join(os.path.dirname(root.rstrip("/")), "Depths_raw", "scan1")
+    for d in (os.path.join(scan, "images"), os.path.join(scan, "cams"), gt):
+        os.makedirs(d, exist_ok=True)
+    write_gate_pairs(os.path.join(scan, "pair.txt"))
+    K = gate_intrinsics()
+    for v, data in enumerate(views):
+        with open(os.path.join(scan, "images", f"{v:0>8}.jpg"), "wb") as f:
+            f.write(data)
+        write_cam_file(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"),
+                       CameraParams(gate_extrinsic(v), 4.0 * K, GATE_DMIN, GATE_DITV))
+        save_pfm(os.path.join(gt, f"depth_map_{v:0>4}.pfm"),
+                 np.full((GATE_IMG, GATE_IMG), GATE_DEPTH, np.float32))
+        write_png(os.path.join(gt, f"depth_visual_{v:0>4}.png"),
+                  np.full((GATE_IMG, GATE_IMG), 255, np.uint8))
+    return root
+
+
+def write_plane_scan_tt(root, views):
+    """The T&T gate's eval layout under `root` (`_make_plane_scan_tt`):
+    scan1/pair.txt, scan1/images/*.jpg (`views`), scan1/cams/ with the
+    full-size K and `dmin ditv nd` but depth_min 60 past the plane's range
+    (wrong on purpose: only the short-range cams recover the plane), and
+    short_range_cameras/cams_scan1/ with the right range. Returns `root`."""
+    from mvsformer_torch.utils.cams import CameraParams, write_cam_file
+
+    scan = os.path.join(root, "scan1")
+    short = os.path.join(root, "short_range_cameras", "cams_scan1")
+    for d in (os.path.join(scan, "images"), os.path.join(scan, "cams"), short):
+        os.makedirs(d, exist_ok=True)
+    write_gate_pairs(os.path.join(scan, "pair.txt"))
+    K = gate_intrinsics()
+    for v, data in enumerate(views):
+        with open(os.path.join(scan, "images", f"{v:0>8}.jpg"), "wb") as f:
+            f.write(data)
+        write_cam_file(os.path.join(scan, "cams", f"{v:0>8}_cam.txt"),
+                       CameraParams(gate_extrinsic(v), K, GATE_DMIN + GATE_TT_FAR, GATE_DITV,
+                                    num_depth=float(GATE_ND)))
+        write_cam_file(os.path.join(short, f"{v:0>8}_cam.txt"),
+                       CameraParams(gate_extrinsic(v), K, GATE_DMIN, GATE_DITV,
+                                    num_depth=float(GATE_ND)))
+    return root
+
+
+def plane_scene(win, depth):
+    """tests/test_convergence.py `make_scene(rng, depth)` from the window of
+    its texture that the scene reads (`win`, [64, CONV_WINDOW, 3] float32,
+    the texture from its padded corner): (imgs [3, 64, 64, 3], projs
+    {stageK: [3, 2, 4, 4]}, depth values [16], gt and mask {stageK}), bit
+    for bit. The sources are the JAX `bilinear_sample` of the texture at
+    the reference's pixels shifted by the disparity along x: on integer
+    rows only the two taps of a row weigh, by 1 - wx and wx."""
+    import numpy as np
+
+    h = w = CONV_HW
+    K = np.array([[CONV_FX, 0, w / 2], [0, CONV_FX, h / 2], [0, 0, 1]], np.float32)
+    imgs, cams = [win[:, :w]], [np.eye(4, dtype=np.float32)]
+    for v in range(CONV_NSRC):
+        tx = CONV_BASELINE * (v + 1)
+        px = np.arange(w, dtype=np.float32) + CONV_PAD + CONV_FX * tx / depth
+        x0 = np.floor(px)
+        wx = px - x0
+        col = x0.astype(np.int64) - CONV_PAD
+        if col.min() < 0 or col.max() + 1 >= win.shape[1]:
+            raise ValueError(f"depth {depth}: the sources read past the texture window")
+        imgs.append(win[:, col] * (1.0 - wx)[:, None] + win[:, col + 1] * wx[:, None])
+        ext = np.eye(4, dtype=np.float32)
+        ext[0, 3] = tx
+        cams.append(ext)
+    projs = {}
+    for s, scale in zip(range(1, 5), (1 / 8, 1 / 4, 1 / 2, 1.0)):
+        p = np.zeros((len(imgs), 2, 4, 4), np.float32)
+        for v, ext in enumerate(cams):
+            p[v, 0] = ext
+            p[v, 1, :3, :3] = K * scale
+            p[v, 1, 2, 2] = 1.0
+            p[v, 1, 3, 3] = 1.0
+        projs[f"stage{s}"] = p
+    dv = np.linspace(40.0, 120.0, 16, dtype=np.float32)
+    gt = {f"stage{i + 1}": np.full((h // sc, w // sc), depth, np.float32)
+          for i, sc in enumerate((8, 4, 2, 1))}
+    mask = {k: np.ones_like(v) for k, v in gt.items()}
+    return np.stack(imgs), projs, dv, gt, mask
+
+
+def plane_scenes():
+    """The convergence gates' committed scenes: ([the loss gate's 4 scenes,
+    rng 0 at CONV_DEPTHS], the overfit gate's scene, rng 1 at CONV_DEPTH1),
+    each as `make_scene` returns it."""
+    import io
+
+    import numpy as np
+
+    m = gate_manifest()["scenes"]
+    tex = np.load(io.BytesIO(gate_file("scenes.npz", m["file_sha256"])))
+    return ([plane_scene(t, d) for t, d in zip(tex["rng0"], CONV_DEPTHS)],
+            plane_scene(tex["rng1"][0], CONV_DEPTH1))
+
+
+def gate_config(depth_type):
+    """The gates' ModelConfig (tests/test_model.py tiny_cfg: full-width
+    alt_gvt_small, feat_chs 8/16/32/64, ndepths 8/4/4/2, GN), drop path 0."""
+    from mvsformer_torch.config import ModelConfig
+
+    cfg = ModelConfig(ndepths=[8, 4, 4, 2], depth_interals_ratio=[4.0, 2.67, 1.5, 1.0],
+                      feat_chs=[8, 16, 32, 64], base_ch=8, depth_type=depth_type,
+                      inverse_depth=True, fusion_type="cnn", norm_type="GN")
+    cfg.vit_args.drop_path_rate = 0.0
+    return cfg
+
+
+def gate_batch(torch, imgs, projs, dv, gt, mask, device):
+    """numpy arrays -> the gate loop's batch of float32 tensors on `device`."""
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    return {"imgs": t(imgs), "projs": {k: t(v) for k, v in projs.items()}, "dv": t(dv),
+            "gt": {k: t(v) for k, v in gt.items()}, "mask": {k: t(v) for k, v in mask.items()}}
+
+
+def plane_batch(torch, ds, device, pad_rows=0):
+    """Every reference view of the gate's eval dataset as one batch
+    (`_collate_train_batch`): gt the plane's depth at each stage's size,
+    the mask 1 but for `pad_rows` rows at top and bottom of every stage."""
+    import numpy as np
+
+    from mvsformer_torch.data.loader import collate
+
+    b = collate([ds[i] for i in range(len(ds))])
+    n = len(ds)
+    gt = {f"stage{i + 1}": np.full((n, GATE_HW // sc, GATE_HW // sc), GATE_DEPTH, np.float32)
+          for i, sc in enumerate((8, 4, 2, 1))}
+    mask = {k: np.ones_like(v) for k, v in gt.items()}
+    if pad_rows:
+        for m in mask.values():
+            m[:, :pad_rows] = 0.0
+            m[:, -pad_rows:] = 0.0
+    projs = {k: v for k, v in b["proj_matrices"].items() if k in GATE_STAGES}
+    return gate_batch(torch, b["imgs"], projs, b["depth_values"], gt, mask, device)
+
+
+def scenes_batch(torch, scenes, device):
+    """make_scene tuples -> one batch, a sample each."""
+    import numpy as np
+
+    parts = list(zip(*scenes))
+    stack = lambda dicts: {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}  # noqa: E731
+    return gate_batch(torch, np.stack(parts[0]), stack(parts[1]), np.stack(parts[2]),
+                      stack(parts[3]), stack(parts[4]), device)
+
+
+def gate_eval(torch, model, batch):
+    """The eval forward of the gates (stage temperatures 5, 5, 5, 1):
+    refined depth [B, H, W]."""
+    with torch.inference_mode():
+        out = model(batch["imgs"], batch["projs"], batch["dv"], tmp=list(GATE_TMPS))
+    return out["refined_depth"]
+
+
+def snapshot(model):
+    """A copy of the model's state that the optimiser's in-place updates
+    do not reach (a state_dict holds the live tensors)."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def gate_train(torch, model, batch, lr, steps, depth_type, eval_err=None, eval_every=0,
+               run=None):
+    """The JAX gates' loop: optax.adam(lr) (betas 0.9 / 0.999, eps 1e-8
+    outside the root, no decay) over every parameter, as torch's Adam; a
+    training forward and `total_loss(depth_type)` a step. With `eval_err`
+    (model -> float, run in eval mode), the error before the first step and
+    every `eval_every` steps, and a snapshot of the weights at the best.
+    `run(kind, fn)` runs each "step" and "eval" (default: fn()). Returns
+    {"losses", "errors", "best_err", "best_step", "best_state"}."""
+    from mvsformer_torch.ops.losses import total_loss
+
+    run = run or (lambda kind, fn: fn())
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    itv = batch["dv"][:, 1] - batch["dv"][:, 0]
+
+    def evaluate():
+        model.eval()
+        try:
+            return float(run("eval", lambda: eval_err(model)))
+        finally:
+            model.train()
+
+    def step():
+        out = model(batch["imgs"], batch["projs"], batch["dv"])
+        loss, _ = total_loss(out, batch["gt"], batch["mask"], itv, depth_type=depth_type)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return float(loss.detach())
+
+    model.train()
+    res = {"losses": [], "errors": [], "best_err": None, "best_step": 0, "best_state": None}
+    if eval_err is not None:
+        res["best_err"] = evaluate()
+        res["errors"].append(res["best_err"])
+        res["best_state"] = snapshot(model)
+    for i in range(steps):
+        res["losses"].append(run("step", step))
+        if eval_err is not None and (i + 1) % eval_every == 0:
+            e = evaluate()
+            res["errors"].append(e)
+            if e < res["best_err"]:
+                res["best_err"], res["best_step"], res["best_state"] = e, i + 1, snapshot(model)
+    return res
+
+
+def plane_eval_err(torch, batch):
+    """The analytic-plane gates' eval error: the mean |depth - 77| over the
+    loss mask's stage-4 pixels (all of them in the DTU gate)."""
+    m = batch["mask"]["stage4"]
+
+    def err(model):
+        e = (gate_eval(torch, model, batch) - GATE_DEPTH).abs()
+        return (e * m).sum() / m.sum()
+    return err
+
+
+def pipeline_thresholds(metrics, n_points, zerr):
+    """The JAX pipeline gates' thresholds after `save_depth` and fusion:
+    [(what, value, "<" or ">", limit)]. `metrics` None (T&T) skips the
+    depth-metric protocol's three."""
+    import numpy as np
+
+    rows = []
+    if metrics is not None:
+        rows += [("abs_depth_error", metrics["abs_depth_error"], "<", 0.5 * GATE_DITV),
+                 ("thres2mm_error", metrics["thres2mm_error"], "<", 0.25),
+                 ("thres8mm_error", metrics["thres8mm_error"], "<", 0.05)]
+    rows += [("points", n_points, ">", 0.2 * GATE_NV * GATE_HW * GATE_HW),
+             ("median |z - 77|", float(np.median(zerr)) if len(zerr) else float("inf"), "<",
+              0.5 * GATE_DITV),
+             ("mean |z - 77|", float(np.mean(zerr)) if len(zerr) else float("inf"), "<",
+              GATE_DITV)]
+    return rows
+
+
+def thresholds_met(rows):
+    return all(v > lim if op == ">" else v < lim for _, v, op, lim in rows)
+
+
+def format_thresholds(rows):
+    return ", ".join(f"{what} {v:.4g} ({op} {lim:.4g})" for what, v, op, lim in rows)
+
+
+def read_depth_metrics(path):
+    with open(path) as f:
+        return {k: float(v) for k, v in (line.split(": ") for line in f if ": " in line)}
+
+
+def gate_runner(torch, card, label, specs, want, rows, launches, on_card):
+    """run(kind, fn) for gate_train and the in-process requests: the launch
+    counts set to 0 just before each run of fn and read just after it, held
+    to `want[kind]` (nothing on the CPU, whose tensors launch no kernel) and
+    added to `launches`; the first run of each kind records its kernels'
+    calls, and on the card each is held to its plain version (rows[name])."""
+    from mvsformer_torch.ops import cuda_build
+
+    seen = set()
+
+    def run(kind, fn):
+        kind_specs = {n: specs[n] for n in want[kind]}
+        first = kind not in seen
+        seen.add(kind)
+        if on_card:
+            torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        if first:
+            recorded, out = record_calls(torch, kind_specs, fn)
+        else:
+            out = fn()
+            if on_card:
+                torch.cuda.synchronize()
+        got = dict(cuda_build.LAUNCHES)
+        expect = want[kind] if on_card else {}
+        if got != expect:
+            raise RuntimeError(f"{label} {kind}: launches {got}, want {expect}")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        if first and on_card:
+            for name, calls in recorded.items():
+                rows.setdefault(name, []).extend(
+                    check_kernel(torch, card, name, specs[name],
+                                 f"{label} {kind} " + call_label(name, i, a), a, k)
+                    for i, (a, k) in enumerate(calls))
+        return out
+    return run
+
+
+def gate_specs(eval_specs):
+    """K1, K3, K6 (of phase 4's `eval_specs`) and K7, K8: the kernels the
+    gates' model launches, with their plain versions and checks."""
+    names = ("warp_group_corr", "depth_decode", "gsa_attention")
+    return dict({n: eval_specs[n] for n in names}, **train_kernel_specs(None))
+
+
+def pipeline_gate(torch, card, kind, root, specs, rows, launches, device="cuda"):
+    """One analytic-plane gate, `kind` "dtu" (pcd fusion, the depth-metric
+    protocol) or "tt" (short-range cams, dpcd fusion): train the re model
+    on every reference view of the eval dataset, save the best weights as
+    a checkpoint of the port's with the gate's config.json, then serve and
+    fuse them with `python -m mvsformer_torch.test` (fp32; the DTU gate
+    also in bf16) and hold the metrics and the PLY to the JAX gate's
+    thresholds. Returns its details."""
+    import numpy as np
+
+    from mvsformer_torch.config import Config, save_config
+    from mvsformer_torch.data.eval_dataset import MVSEvalDataset
+    from mvsformer_torch.data.loader import collate
+    from mvsformer_torch.infer import make_infer_fn
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+    from mvsformer_torch.train.checkpoint import CheckpointManager
+    from mvsformer_torch.utils.pfm import read_pfm
+    from mvsformer_torch.utils.ply import read_ply
+
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    tt = kind == "tt"
+    label = f"gate {kind}"
+    views = gate_views()
+    kw = dict(nviews=GATE_NUM_VIEW, ndepths=GATE_ND, max_h=GATE_HW, max_w=GATE_HW)
+    if tt:
+        data = write_plane_scan_tt(os.path.join(root, "tteval"), views)
+        kw.update(dataset="tt", interval_scale={"scan1": 1.0}, use_short_range=True)
+    else:
+        data = write_plane_scan(os.path.join(root, "eval"), views)
+        kw.update(dataset="dtu", interval_scale=1.0)
+    ds = MVSEvalDataset(data, ["scan1"], **kw)
+    batch = plane_batch(torch, ds, device, pad_rows=GATE_TT_PAD if tt else 0)
+    if tt and abs(float(batch["dv"][0, 0]) - GATE_DMIN) > 1e-4:
+        raise RuntimeError(f"{label}: short-range cams not routed: the depths start at "
+                           f"{float(batch['dv'][0, 0])}, want {GATE_DMIN}")
+    cfg = Config()
+    cfg.arch = gate_config("re")
+    model = build_model(cfg.arch, device=device, train=True)
+    random_init_(model, torch.Generator().manual_seed(GATE_SEED))
+    want = {"step": GATE_STEP_LAUNCHES, "eval": GATE_EVAL_LAUNCHES,
+            "request": GATE_EVAL_LAUNCHES}
+    run = gate_runner(torch, card, label, specs, want, rows, launches, on_card)
+    with deterministic_math(torch) if on_card else contextlib.nullcontext():
+        res = gate_train(torch, model, batch, GATE_LR, GATE_STEPS, "re",
+                         eval_err=plane_eval_err(torch, batch), eval_every=GATE_EVAL_EVERY,
+                         run=run)
+    train_s = time.perf_counter() - t0
+    traj = [round(e, 3) for e in res["errors"]]
+    print(f"{label}: {GATE_STEPS} Adam steps ({train_s:.1f} s), loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}; eval error every {GATE_EVAL_EVERY} steps {traj}; best "
+          f"{res['best_err']:.4f} at step {res['best_step']} (< {0.5 * GATE_DITV:g}) [{card}]",
+          flush=True)
+    if not (np.isfinite(res["best_err"]) and res["best_err"] < 0.5 * GATE_DITV):
+        raise RuntimeError(f"{label}: the overfit never reached sub-interval depth: "
+                           f"best {res['best_err']}, trajectory {traj}")
+
+    # The best weights, loaded back: their error and view 0's request, to
+    # hold the CLI's output to (the CLI must serve the best weights, not the
+    # last).
+    model.load_state_dict(res["best_state"])
+    model.eval()
+    again = float(plane_eval_err(torch, batch)(model))
+    first = collate([ds[0]])
+    fn = make_infer_fn(model, GATE_TMPS)
+    d0, c0, _ = run("request", lambda: fn(first["imgs"], {k: first["proj_matrices"][k]
+                                                          for k in GATE_STAGES},
+                                          first["depth_values"]))
+    if abs(again - res["best_err"]) > E2E_DEPTH_ATOL:
+        raise RuntimeError(f"{label}: the best weights loaded back give {again}, "
+                           f"not {res['best_err']}")
+    ckpt_dir = os.path.join(root, f"ckpt_{kind}")
+    manager = CheckpointManager(ckpt_dir, monitor="min eval_err")
+    manager.step(res["best_step"], res["best_err"], {"state_dict": res["best_state"]})
+    save_config(cfg, os.path.join(ckpt_dir, "config.json"))
+    listfile = os.path.join(root, "scans.txt")
+    with open(listfile, "w") as f:
+        f.write("scan1\n")
+    fusion = (["--filter_method", "dpcd", "--dist_base", "2.0", "--rel_diff_base", "150",
+               "--use_short_range", "--interval_scale", "scan1:1.0"] if tt else
+              ["--filter_method", "pcd", "--thres_view", "2", "--thres_disp", "1.0",
+               "--interval_scale", "1.0"])
+    details = {"train_s": train_s, "losses": res["losses"], "errors": res["errors"],
+               "best_err": res["best_err"], "best_step": res["best_step"],
+               "best_err_reloaded": again, "cli": {}}
+    gate_ok = True
+    for dtype in ("fp32",) if tt else ("fp32", "bf16"):
+        out = os.path.join(root, f"out_{kind}_{dtype}")
+        log = f"gate_{kind}_{dtype}"
+        cli_s = run_cli("mvsformer_torch.test", [
+            "--dataset", kind, "--testpath", data, "--testlist", listfile, "--ckpt_dir",
+            ckpt_dir, "--which_ckpt", "model_best", "--outdir", out, "--num_view",
+            str(GATE_NUM_VIEW), "--ndepths", str(GATE_ND), "--max_h", str(GATE_HW), "--max_w",
+            str(GATE_HW), "--dtype", dtype, "--prob_threshold", "0.3", "--fusion_src_views",
+            "4"] + fusion + ([] if on_card else ["--device", device]), log,
+            timeout=GATE_CLI_TIMEOUT_S)
+        counts = check_cli_launches(log, {n: {"per_request": c if on_card else 0}
+                                          for n, c in GATE_EVAL_LAUNCHES.items()}, len(ds))
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        for v in range(GATE_NV):
+            for sub, suf in (("depth_est", ".pfm"), ("confidence", ".npy"),
+                             ("cams", "_cam.txt"), ("images", ".jpg")):
+                if not os.path.exists(os.path.join(out, "scan1", sub, f"{v:0>8}{suf}")):
+                    raise RuntimeError(f"{label} {dtype}: no {sub}/{v:0>8}{suf}")
+        metric_file = os.path.join(out, "depth_metric.txt")
+        if tt == os.path.exists(metric_file):
+            raise RuntimeError(f"{label} {dtype}: depth_metric.txt "
+                               + ("written without ground truth" if tt else "missing"))
+        metrics = None if tt else read_depth_metrics(metric_file)
+        pts, _ = read_ply(os.path.join(out, "scan1.ply"))
+        zerr = np.abs(pts[:, 2] - GATE_DEPTH)
+        checks = pipeline_thresholds(metrics, len(pts), zerr)
+        gap = float(np.abs(read_pfm(os.path.join(out, "scan1", "depth_est", "00000000.pfm"))[0]
+                           - d0[0].cpu().numpy()).max())
+        gap_c = float(np.abs(np.load(os.path.join(out, "scan1", "confidence", "00000000.npy"))
+                             - c0[0].cpu().numpy()).max())
+        ok = thresholds_met(checks)
+        if dtype == "fp32":
+            # The CLI serves the best weights: its view 0 is this process's.
+            ok = ok and gap <= E2E_DEPTH_ATOL and gap_c <= E2E_CONF_ATOL
+        gate_ok = gate_ok and ok
+        print(f"{label} test CLI --dtype {dtype} ({cli_s:.1f} s; launches "
+              f"{json.dumps(counts)}): {format_thresholds(checks)}; view 0 against the best "
+              f"weights in this process: depth {gap:.3e}, confidence {gap_c:.3e}"
+              + (f" (tolerance {E2E_DEPTH_ATOL:g}, {E2E_CONF_ATOL:g})" if dtype == "fp32" else
+                 "") + f" {'ok' if ok else 'FAILED'} [{card}]", flush=True)
+        details["cli"][dtype] = {"s": cli_s, "launches": counts, "metrics": metrics,
+                                 "points": len(pts), "median_zerr": float(np.median(zerr)),
+                                 "mean_zerr": float(np.mean(zerr)), "view0_depth_gap": gap,
+                                 "view0_conf_gap": gap_c, "ok": ok}
+    if not gate_ok:
+        raise RuntimeError(f"{label}: the test CLI's output misses the gate's thresholds")
+    details["s"] = time.perf_counter() - t0
+    return details
+
+
+def convergence_gates(torch, card, specs, rows, launches, device="cuda"):
+    """The two convergence gates on the committed scenes: the loss over 4
+    planar scenes must fall (late < 0.85 early over 24 steps), and the
+    overfit of one must pass through sub-interval eval depth (best < 1.5
+    intervals and < 0.15 of the first error over 60 steps). ce decode, so
+    the eval launches K3. Returns their details."""
+    import numpy as np
+
+    from mvsformer_torch.models.mvsformer import build_model, random_init_
+
+    on_card = device != "cpu"
+    scenes, one = plane_scenes()
+    want = {"step": GATE_STEP_LAUNCHES,
+            "eval": dict(GATE_EVAL_LAUNCHES, depth_decode=4)}
+    details = {}
+    with deterministic_math(torch) if on_card else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        batch = scenes_batch(torch, scenes, device)
+        model = build_model(gate_config("ce"), device=device, train=True)
+        random_init_(model, torch.Generator().manual_seed(GATE_SEED))
+        run = gate_runner(torch, card, "gate loss", specs, want, rows, launches, on_card)
+        res = gate_train(torch, model, batch, CONV_LOSS["lr"], CONV_LOSS["steps"], "ce",
+                         run=run)
+        h = res["losses"]
+        early, late = float(np.mean(h[:4])), float(np.mean(h[-4:]))
+        ok = bool(np.isfinite(h).all()) and late < 0.85 * early
+        print(f"gate loss ({len(scenes)} scenes, {CONV_LOSS['steps']} steps, "
+              f"{time.perf_counter() - t0:.1f} s): losses {[round(x, 4) for x in h]}; "
+              f"early {early:.4f}, late {late:.4f} (< 0.85 early: {0.85 * early:.4f}) "
+              f"{'ok' if ok else 'FAILED'} [{card}]", flush=True)
+        if not ok:
+            raise RuntimeError(f"gate loss: the loss did not learn: {early} -> {late}")
+        details["loss"] = {"losses": h, "early": early, "late": late,
+                           "s": time.perf_counter() - t0}
+        del model, batch
+
+        t0 = time.perf_counter()
+        batch = scenes_batch(torch, [one], device)
+        itv = float(batch["dv"][0, 1] - batch["dv"][0, 0])
+        model = build_model(gate_config("ce"), device=device, train=True)
+        random_init_(model, torch.Generator().manual_seed(GATE_SEED))
+        run = gate_runner(torch, card, "gate overfit", specs, want, rows, launches, on_card)
+
+        def err(m):
+            return (gate_eval(torch, m, batch) - CONV_DEPTH1).abs().mean()
+
+        res = gate_train(torch, model, batch, CONV_FIT["lr"], CONV_FIT["steps"], "ce",
+                         eval_err=err, eval_every=CONV_FIT["eval_every"], run=run)
+        err0, best = res["errors"][0], res["best_err"]
+        ok = bool(np.isfinite(best)) and best < 1.5 * itv and best < 0.15 * err0
+        print(f"gate overfit ({CONV_FIT['steps']} steps, {time.perf_counter() - t0:.1f} s): "
+              f"eval error every {CONV_FIT['eval_every']} steps "
+              f"{[round(e, 3) for e in res['errors']]}; best {best:.4f} (< 1.5 intervals "
+              f"{1.5 * itv:.4f}, < 0.15 x {err0:.4f}) {'ok' if ok else 'FAILED'} [{card}]",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"gate overfit: best error {best} (first {err0}, interval {itv})")
+        details["overfit"] = {"losses": res["losses"], "errors": res["errors"], "best": best,
+                              "err0": err0, "s": time.perf_counter() - t0}
+    return details
+
+
+def gates_phase(torch, card, eval_specs, device="cuda"):
+    """Phase 19: the four accuracy gates. `eval_specs`: phase 4's K1-K6
+    specs. Returns {"rows", "launches", "details"}."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    on_card = device != "cpu"
+    if on_card:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    specs = gate_specs(eval_specs)
+    rows, launches, details = {}, {}, {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "gates")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    subphase = subphase_clock("19a")
+    try:
+        details["dtu"] = pipeline_gate(torch, card, "dtu", root, specs, rows, launches, device)
+        subphase("19b")
+        details["tt"] = pipeline_gate(torch, card, "tt", root, specs, rows, launches, device)
+        subphase("19c")
+        details["convergence"] = convergence_gates(torch, card, specs, rows, launches, device)
+        subphase(None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    details["launches"] = launches
+    details["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19 (the accuracy gates): {details['phase_s']:.1f} s; launches {launches} "
+          f"[{card}]", flush=True)
+    return {"rows": rows, "launches": launches, "details": details}
+
+
 def main() -> int:
     import torch
 
@@ -4908,11 +5563,16 @@ def main() -> int:
     options = options_phase(torch, card)
 
     stamps.append(("18 (training options)", time.perf_counter()))
+    # 19. The four accuracy gates: trained here, served by the test CLI.
+    torch.cuda.empty_cache()
+    gates = gates_phase(torch, card, specs)
+
+    stamps.append(("19 (the accuracy gates)", time.perf_counter()))
     # Each kernel's entry sums its checks and launches over the phases.
     all_specs = dict(specs, **train_kernel_specs(None))
     checked = dict(per_call, **train["per_call"])
     total = {row["name"]: row["launches"] for row in kernels}
-    for phase in (run, dino, variants, bf16, grid, a6, options):
+    for phase in (run, dino, variants, bf16, grid, a6, options, gates):
         for name, rows in phase["rows"].items():
             checked[name] = checked[name] + rows
         for name, n in phase["launches"].items():
@@ -4946,6 +5606,7 @@ def main() -> int:
         "variants_a6": dict(a6["details"], rows=a6["rows"], launches=a6["launches"]),
         "options": dict(options["details"], rows=options["rows"],
                         launches=options["launches"]),
+        "gates": dict(gates["details"], rows=gates["rows"]),
     }
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

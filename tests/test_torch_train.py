@@ -93,10 +93,10 @@ def test_range_and_bins_match_jax(rng):
 
 
 @pytest.mark.parametrize("depth_type", ["re", "was", "mixup_ce"])
-def test_other_losses_are_not_ported_yet(rng, depth_type):
-    """Named when the port refused these losses; they are ported now, so
-    each must give the JAX loss on these outputs (fp32; the float64 values
-    and gradients are tests/test_torch_depth_types.py's)."""
+def test_re_was_and_mixup_ce_losses_match_jax(rng, depth_type):
+    """Each of the other depth types' losses gives the JAX loss on these
+    outputs (fp32; the float64 values and gradients are
+    tests/test_torch_depth_types.py's)."""
     outs, gt, mask = stage_outputs(rng, True)
     for k in KEYS:  # the re loss reads the regressed depth, the was loss the softmax
         outs[k]["depth"] = rng.uniform(420, 900, gt[k].shape).astype(np.float32)
